@@ -1,4 +1,4 @@
-.PHONY: test native bench bench-scaling verify soak clean
+.PHONY: test native bench bench-scaling smoke verify clean
 
 test:
 	python -m pytest tests/ -q
@@ -14,9 +14,9 @@ bench:
 bench-scaling:
 	python bench_scaling.py
 
-# differential fuzz soak, all families, CPU virtual mesh (scale with SOAK=N)
-soak:
-	python scripts/cpu_soak.py $(or $(SOAK),1)
+# one-process smoke run of the flagship path on a GPU (--four: 4 cards)
+smoke:
+	python chip_smoke.py
 
 # full local verification: suite + driver entry points + smoke examples
 verify: test

@@ -5,7 +5,7 @@ The Geffe generator combines three LFSRs through ``z = x1·x2 ^ (1^x1)·x3``
 finish it (the products only touch a thin slice of the monomial space, so
 the linearized solution space stays huge); the structure to exploit is that
 CONDITIONED on register 1's stream the keystream is LINEAR in registers 2
-and 3.  That conditioning is exactly the shape the TPU build scales:
+and 3.  That conditioning is exactly the shape the device build scales:
 
 1. register 1's output stream is a GF(2)-linear map of its initial state,
    so ALL 2^n1 candidate streams are ONE packed matmul on the device;

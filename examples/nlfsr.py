@@ -5,7 +5,7 @@ filtered through a 5-tap combiner; whenever the keystream bit is 1, the
 annihilator of the combiner vanishes on the tap bits, giving one quadratic
 equation; linearization over 128 + 8128 monomials solves the state.
 
-TPU-idiomatic trace: the LFSR is traced once against a *narrow* linear
+Device-idiomatic trace: the LFSR is traced once against a *narrow* linear
 system (129-bit rows), the three tap-bit streams are stacked into wide
 BitVecs, and all annihilator rows are produced by two batched ``mul_bits``
 calls — no per-output O(n^2) monomial expansion.

@@ -4,8 +4,8 @@ Workload parity with ``/root/reference/examples/nlfsr_ex.py``: only 2**14
 outputs (so the solution space can exceed the enumeration guard), a
 multi-block QuadraticSystem([65, 63]), an on-disk cache of the
 input-independent symbolic trace, and — when DimensionTooLargeError fires —
-a 2-bit ``bit_assert`` bruteforce over x[0] and x[1]^x[2]^x[87].  The TPU
-addition: all four guess subsystems solve as ONE batched device call.
+a 2-bit ``bit_assert`` bruteforce over x[0] and x[1]^x[2]^x[87].  This
+engine's addition: all four guess subsystems solve as ONE batched device call.
 """
 
 import _bootstrap  # noqa: F401  (repo-root imports + persistent compile cache)

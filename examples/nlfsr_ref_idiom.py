@@ -1,6 +1,6 @@
 """The NLFSR attack driven through the PER-BIT ``mul_bit`` idiom.
 
-`examples/nlfsr.py` is the TPU-idiomatic version of this attack (narrow
+`examples/nlfsr.py` is the device-idiomatic version of this attack (narrow
 tap streams, batched device expansion).  This file solves the identical
 workload the way a user migrating from the reference would naturally write
 it — full-width quadratic gens, a plain Python loop stepping the symbolic

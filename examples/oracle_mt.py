@@ -1,9 +1,9 @@
-"""Differential validation of the TPU solver against the numpy oracle on the
+"""Differential validation of the device solver against the numpy oracle on the
 full MT19937 system.
 
 Plays the role of ``/root/reference/examples/sage_mt.py`` (which
 cross-validates against Sage's solve_right): the same 19968-var system is
-solved by the TPU Gauss-Jordan and by the slow host oracle, and the raw
+solved by the device Gauss-Jordan and by the slow host oracle, and the raw
 solution ints must match bit-for-bit.  Note: the oracle on a 19968^2 system
 takes minutes on CPU; pass a smaller bs-derived sample count to go faster."""
 
@@ -31,7 +31,7 @@ def oracle_test(bs=32):
     eqs = lin.get_eqs_packed(zeros)
     print("dim", eqs.shape)
 
-    with timeit("tpu solve_raw_one"):
+    with timeit("device solve_raw_one"):
         ss = lin.solve_raw_one(zeros)
     with timeit("numpy oracle"):
         ref = solve_oracle(eqs, lin.cols)

@@ -1,5 +1,5 @@
 """Serving-scale state recovery: a fleet of PRNG instances, one captured
-model, instances sharded across a device mesh (new TPU capability — the
+model, instances sharded across a device mesh (new capability — the
 reference solves each instance with its own full PLUQ on one core,
 ``/root/reference/gf2bv/_internal.c:359-502``).
 
@@ -11,7 +11,7 @@ replicated — zero collectives, so throughput is devices x the single-chip
 rate (measured 119k full MT19937 recoveries/s/chip at B=32768,
 BASELINE.md).
 
-Runs on whatever devices exist: the single TPU chip (1-device mesh) or a
+Runs on whatever devices exist: one GPU (1-device mesh), several, or a
 virtual CPU mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \

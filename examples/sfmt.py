@@ -6,7 +6,7 @@ SFMT has no output tempering, so the observed words ARE state words; the
 attack content is entirely in the truncation: here the victim leaks only
 the low 16 bits of each draw, and the 128-bit-lane recursion ties the
 unseen halves together across blocks.  19968 unknowns — exactly the
-flagship MT shape the blocked TPU solver is tuned for.
+flagship MT shape the blocked device solver is tuned for.
 """
 
 import _bootstrap  # noqa: F401  (repo-root imports + persistent compile cache)

@@ -1,7 +1,7 @@
-"""Row-sharded solve across a device mesh (new TPU capability; the
+"""Row-sharded solve across a device mesh (new capability; the
 reference is single-core).
 
-Runs on whatever devices exist: the single TPU chip (1-device mesh — same
+Runs on whatever devices exist: one GPU (1-device mesh — same
 code path, collectives compiled away) or a virtual CPU mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,14 +1,14 @@
-"""gf2bv_tpu — a TPU-native GF(2) linear-system engine.
+"""gf2bv_tpu — a GF(2) linear-system engine on JAX accelerators.
 
 Write an ordinary Python function (a hash, an LFSR, a Mersenne Twister) and
 run it on symbolic bitvectors; every output bit becomes an affine form over
 the unknown input bits; asserted-zero bitvectors become a GF(2) system
-``Ax = b`` solved by bit-packed Gauss-Jordan on TPU (JAX/XLA/Pallas), either
+``Ax = b`` solved by bit-packed Gauss-Jordan on a GPU (JAX/XLA/Pallas), either
 for one solution or the full enumerable affine solution space.  A
 QuadraticSystem extension handles degree-2 systems by linearization.
 
 Same capabilities and public API as maple3142/gf2bv (the reference at
-``/root/reference``), re-designed TPU-first: packed coefficient matrices
+``/root/reference``), re-designed for the device: packed coefficient matrices
 instead of per-bit big-ints, XLA fori-loop / Pallas panel elimination instead
 of M4RI PLUQ, batched + mesh-sharded multi-instance solving, and on-device
 affine-space enumeration.

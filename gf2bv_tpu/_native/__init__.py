@@ -1,7 +1,7 @@
 """ctypes loader for the native host engine (native.c).
 
-Plays the role of the reference's C extension + libm4ri on hosts without a
-TPU (``/root/reference/gf2bv/_internal.c:359-502`` / ``setup.py:55-73``) —
+Plays the role of the reference's C extension + libm4ri on hosts without an
+accelerator (``/root/reference/gf2bv/_internal.c:359-502`` / ``setup.py:55-73``) —
 a from-scratch M4R-family engine, no m4ri code.
 
 Builds the shared library variants on demand (single-file gcc compiles,
@@ -33,16 +33,28 @@ _NSUB_SPLIT_COLS = 4096
 _LIBS: dict = {}  # nsub -> CDLL | False
 
 
+def _compile(nsub: int, so: Path) -> None:
+    """gcc into a private file next to ``so``, then rename it into place:
+    concurrent processes (pytest workers) never load a half-written
+    library."""
+    part = so.with_name(f"{so.stem}.{os.getpid()}.part.so")
+    cmd = [
+        "gcc", "-O3", "-march=native", "-funroll-loops", "-fopenmp",
+        f"-DNSUB={nsub}", "-shared", "-fPIC", "-o", str(part), str(_SRC),
+    ]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(part, so)
+    finally:
+        part.unlink(missing_ok=True)
+
+
 def _build(nsub: int) -> Path | None:
     so = _HERE / f"libgf2native_n{nsub}.so"
     if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
         return so
-    cmd = [
-        "gcc", "-O3", "-march=native", "-funroll-loops", "-fopenmp",
-        f"-DNSUB={nsub}", "-shared", "-fPIC", "-o", str(so), str(_SRC),
-    ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        _compile(nsub, so)
         return so
     except Exception:
         # read-only package dir or missing gcc: try a temp dir
@@ -50,8 +62,7 @@ def _build(nsub: int) -> Path | None:
             tmp = Path(tempfile.gettempdir()) / (
                 f"libgf2native_n{nsub}_{os.getuid()}.so"
             )
-            cmd[-2] = str(tmp)
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            _compile(nsub, tmp)
             return tmp
         except Exception:
             return None
@@ -158,7 +169,7 @@ def solve_native(eqs: np.ndarray, cols: int, mode: int,
     """m4ri_solve-shaped entry on the native engine (solver.py contract).
 
     mode 0 runs the trailing update (~2x faster) and verifies the candidate
-    origin against the ORIGINAL system by row parity (exactly the TPU
+    origin against the ORIGINAL system by row parity (exactly the device
     fused-path contract); mode 1 needs the free columns and does the full
     update.
 

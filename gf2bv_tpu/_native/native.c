@@ -1,6 +1,6 @@
 /* Native host GF(2) elimination engine.
  *
- * The CPU-side counterpart of the TPU solvers: bit-packed (uint64 words)
+ * The CPU-side counterpart of the device solvers: bit-packed (uint64 words)
  * Gauss-Jordan to reduced row echelon form using NSUB*8-column macro-panels
  * with NSUB 256-entry XOR tables applied in ONE fused pass per macro-panel
  * ("Method of Four Russians" style, the same algorithmic family as the
@@ -72,7 +72,7 @@ static inline uint64_t stripk(const uint64_t *row, int64_t c0, int k) {
  *     free columns, which a free-vars-0 particular solution never reads.
  *     The result is then NOT a full RREF in the free columns and
  *     gf2_inconsistent is unreliable; the caller must verify the extracted
- *     solution against the original system (the same contract as the TPU
+ *     solution against the original system (the same contract as the device
  *     trailing mode, ops/gauss_blocked.py).
  */
 int64_t gf2_rref(uint64_t *a, int64_t rows, int64_t w_alloc, int64_t cols,

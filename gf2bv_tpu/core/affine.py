@@ -12,7 +12,7 @@ Instead of the reference's one-row-XOR-per-point sequential iterator, points
 are materialized in vectorized batches (whole chunks of the selector matrix
 combined at once); the Python iterator facade yields ints from each batch, so
 enumeration order is bit-identical while the arithmetic is array-shaped (and
-can be pushed to the TPU for large spaces — see ops/enumerate.py).
+can be pushed to the device for large spaces — see ops/enumerate.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Symbolic bitvector over GF(2), packed-array representation.
 
 API-compatible with the reference ``gf2bv.BitVec``
-(``/root/reference/gf2bv/__init__.py:21-134``) but with a TPU-friendly data
+(``/root/reference/gf2bv/__init__.py:21-134``) but with a device-friendly data
 model: instead of one Python big-int per bit, a BitVec of width ``w`` over a
 system with ``cols`` variables is a single ``(w, W64)`` uint64 numpy matrix.
 Row ``i`` (LSB first) packs the affine-form mask of bit ``i``: packed bit 0 is

@@ -1,10 +1,9 @@
 """Capture/bind: run the symbolic model ONCE, re-solve for new instances
 without re-executing any user Python.
 
-The round-2 review measured the real user-facing latency of the public API:
-the device solve is ~0.11 s warm, but every new instance re-ran the Python
-model to rebuild the ~20k-node trace DAG (~0.14 s) before the cached
-structure was even consulted.  This module removes that re-trace entirely:
+Without it every new instance re-runs the Python model to rebuild the
+~20k-node trace DAG (MT19937) before the cached device structure is even
+consulted.  This module removes that re-trace entirely:
 
 * ``LinearSystem.capture(fn)`` runs ``fn(gens, params)`` one time; the
   per-instance constants are ``core.lazy.Param`` placeholders (``params[i]``)

@@ -5,7 +5,7 @@ function run on symbolic bitvectors yields a GF(2) system
 (``/root/reference/gf2bv/__init__.py:21-134``).  Its cost model, however, is
 per-op big-int work, and the round-1 eager port kept that shape: every BitVec
 op materializes a packed numpy matrix on the host and ``solve_one`` uploads
-the ~100 MB result.  This module makes the generic trace TPU-first:
+the ~100 MB result.  This module makes the generic trace device-first:
 
 * ``LazyBitVec`` implements the whole BitVec op surface but only RECORDS an
   expression DAG (``Expr`` nodes) — tracing MT19937 is ~20k tiny Python
@@ -64,7 +64,7 @@ class Param:
     XOR-with-constant is the only way per-instance data enters a GF(2)
     linear trace (it touches nothing but the affine column), so a DAG
     recorded once with Params can be re-solved for new constants WITHOUT
-    re-running the user's model — the TPU-era version of the reference's
+    re-running the user's model — this engine's version of the reference's
     pickled-trace reuse pattern
     (``/root/reference/examples/nlfsr_ex.py:28-48``).  Structure hashes
     deliberately treat a Param exactly like a literal constant, so a

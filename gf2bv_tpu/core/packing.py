@@ -5,8 +5,8 @@ the monomial basis (``/root/reference/gf2bv/__init__.py:24-27,151-152``): bit 0
 is the affine/constant term, bits ``1..cols`` the linear variables.  Here the
 same mask is a **packed word array**: bit ``j`` of the mask lives at word
 ``j // 64``, bit ``j % 64`` of a little-endian ``uint64`` numpy array.  On
-device the same buffer is viewed as ``uint32`` (TPUs have no native int64
-path), so ``W32 == 2 * W64`` always holds and bit ``j`` is at 32-bit word
+device the same buffer is viewed as ``uint32`` (the device paths keep to
+32-bit words), so ``W32 == 2 * W64`` always holds and bit ``j`` is at 32-bit word
 ``j // 32``, bit ``j % 32``.
 
 All helpers are host-side numpy; they are cheap O(bits) conversions used at

@@ -34,7 +34,7 @@ def enumerate_points(
 ):
     """points[i] = origin ^ combo(bits(order(start+i))) for i < count.
 
-    TPU has no native 64-bit integers, so the enumeration index is carried
+    The device paths keep to 32-bit integers, so the enumeration index is carried
     as a (hi, lo) uint32 pair — dims up to 64 enumerate correctly (the
     reference's Gray range, ``_internal.c:101-122``)."""
     dim = basis.shape[0]

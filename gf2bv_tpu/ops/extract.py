@@ -1,6 +1,6 @@
 """Shared solution/kernel extraction from an RREF in packed form.
 
-Both the numpy oracle and the JAX/TPU solvers reduce the augmented system to
+Both the numpy oracle and the JAX solvers reduce the augmented system to
 reduced row echelon form (pivoting on variable columns 1..cols; packed column
 0 is the affine constant, i.e. the RHS).  This module turns (pivot rows,
 pivot columns) into the canonical particular solution and kernel basis:

@@ -1,31 +1,18 @@
-"""Batched panel-blocked RREF: B large systems in one device program.
+"""Many flagship-size systems in one device program.
 
-Why this exists: the single-system phase 1 is latency-floor-bound — each of
-the ~20k sequential pivot steps costs two cross-lane tree reductions
-(~1 us), and neither narrower lanes (pallas_sub) nor fused pivot pairs
-(pallas_scan2) move it (both measured).  The batched scan kernel advances B
-solves per sequential step, amortizing that reduction latency across the
-batch.
-
-MEASURED REALITY at flagship (MT19937) shape: the amortization washes out —
-the batched scan is VMEM-traffic-bound at B x 20k lanes, so B=4 ties the
-single fused solve per solve (0.107 s, BASELINE.md round 2) and LOSES to a
-device-chained lax.scan of the single-system solver (~0.072 s/solve).  The
-wins this module retains are (a) ONE dispatch + ONE stacked readback per
-batch in mode 1 (per-instance basis extraction is batched here), and (b)
-sub-flagship wide systems (fewer lanes per instance, the scan vectorizes
-without hitting the VMEM ceiling).  Mode-0 flagship batches should use
-:func:`solve_chained` below — parallel/batch.py routes there by default.
-
-This is the flagship-size batch axis (independent MT19937-scale recoveries
-per chip); small systems keep using the vmapped per-pivot kernel
+The batch axis for wide systems (independent MT19937-scale recoveries per
+device); small systems keep using the vmapped per-pivot kernel
 (parallel/batch.py), which wins below the blocked threshold.
 
-Structure per K-column panel (mirrors gauss_blocked's split engine):
-  scan_batched   (B, kw, rows) pallas kernel — K pivot steps, all B at once
-  gather         pivot rows + coefficient words, one XLA gather each
-  reconstruct_batched  (B, K, wp) pallas kernel — triangular rebuild + back pass
-  phase 2        per-system rank-K update (MXU engine), static B loop
+* mode 0 — :func:`solve_chained`: a device-chained ``lax.scan`` of the
+  single-system fused solver (gauss_blocked.rref_origin_blocked).  One
+  dispatch and one stacked (B, W32) origin readback per batch.
+* mode 1 — :func:`solve_batched`: a ``lax.map`` of the single-system
+  blocked RREF (:func:`rref_blocked_batched`), then one batched
+  extraction (extract_device.finalize_batch).
+
+Every per-instance result is bit-identical to a single solve (RREF is
+unique).
 """
 
 from __future__ import annotations
@@ -37,302 +24,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core import packing
-from .gauss_blocked import (
-    K_PANEL,
-    _ROW_BUCKET,
-    apply_rank_k_update,
-    origin_parity_unsat,
-    selector_from_prow,
-)
-
-
-def _make_scan_kernel_b(B: int, rows: int, K: int, kw: int, cols: int):
-    def kernel(w0_ref, bT_in, used_in, prow_ref, used_ref, cT_ref, bT_ref):
-        w0 = w0_ref[0]
-        lane2 = lax.broadcasted_iota(jnp.int32, (B, rows), 1)
-        lane3 = lax.broadcasted_iota(jnp.int32, (B, 1, rows), 2)
-
-        bT_ref[:] = bT_in[:]
-        used_ref[:] = used_in[:]
-        cT_ref[:] = jnp.zeros((B, kw, rows), jnp.uint32)
-
-        for sw in range(kw):
-            def p1_step(jj32, _, sw=sw):
-                jj = 32 * sw + jj32
-                gbit = 32 * w0 + jj
-                valid = (gbit >= 1) & (gbit <= cols)
-                shift = jj32.astype(jnp.uint32)
-
-                col = (bT_ref[:, sw, :] >> shift) & 1  # (B, rows)
-                cand = (col == 1) & (used_ref[:] == 0) & valid
-                piv = jnp.min(
-                    jnp.where(cand, lane2, rows), axis=1, keepdims=True
-                )  # (B, 1)
-                has = piv < rows  # (B, 1)
-                piv_safe = jnp.where(has, piv, 0)
-
-                # per-system pivot row of the live slice (masked reduction
-                # over lanes, vectorized over the batch axis)
-                pmask = lane3 == piv_safe[:, :, None]  # (B, 1, rows)
-                bpiv = jnp.sum(
-                    jnp.where(pmask, bT_ref[:, sw:, :].astype(jnp.int32), 0),
-                    axis=2,
-                    keepdims=True,
-                ).astype(jnp.uint32)  # (B, kw-sw, 1)
-
-                elim = cand & (lane2 != piv)  # (B, rows)
-                em = jnp.where(
-                    elim, jnp.uint32(0xFFFFFFFF), jnp.uint32(0)
-                )  # (B, rows)
-                bT_ref[:, sw:, :] = bT_ref[:, sw:, :] ^ (em[:, None, :] & bpiv)
-                cT_ref[:, sw, :] = cT_ref[:, sw, :] ^ (
-                    em & (jnp.uint32(1) << shift)
-                )
-                used_ref[:] = jnp.where(
-                    (lane2 == piv) & has, jnp.int32(1), used_ref[:]
-                )
-                pv = jnp.where(has, piv, -1)  # (B, 1)
-                prow_ref[pl.ds(jj, 1), :] = jnp.swapaxes(pv, 0, 1)  # (1, B)
-                return 0
-
-            lax.fori_loop(0, 32, p1_step, 0)
-
-    return kernel
-
-
-def _make_reconstruct_kernel_b(B: int, wp: int, K: int, kw: int):
-    """prow_t: (K, B) int32, coeff_t: (K, B, kw) uint32 — the per-pivot
-    axis leads so dynamic indexing stays off the lane dimension."""
-
-    def kernel(w0_ref, prow_ref, coeff_ref, arows_in, pf_ref):
-        w0 = w0_ref[0]
-        k3 = lax.broadcasted_iota(jnp.int32, (B, K, 1), 1)
-
-        pf_ref[:] = jnp.zeros((B, K, wp), jnp.uint32)
-
-        # forward: pf[b, jj] = arows[b, jj] ^ combo(pf[b, :jj], coeff[b, jj])
-        for sw in range(kw):
-            rows_used = 32 * (sw + 1)
-            k3u = k3[:, :rows_used, :]
-
-            def fwd_step(jj32, _, sw=sw, rows_used=rows_used, k3u=k3u):
-                jj = 32 * sw + jj32
-                # stay >= 2D throughout (Mosaic rejects 1D->3D shape casts)
-                # and transpose the int32 BEFORE comparing (bool transposes
-                # fail to legalize)
-                has = jnp.swapaxes(prow_ref[pl.ds(jj, 1), :], 0, 1) >= 0
-                cj = coeff_ref[pl.ds(jj, 1), :, :]  # (1, B, kw)
-                word_k = k3u >> 5
-                shift_k = (k3u & 31).astype(jnp.uint32)
-                wsel = jnp.zeros((B, rows_used, 1), jnp.uint32)
-                for t in range(sw + 1):
-                    cw = jnp.swapaxes(cj[:, :, t], 0, 1)  # (B, 1)
-                    wsel = jnp.where(word_k == t, cw[:, :, None], wsel)
-                bits_k = (wsel >> shift_k) & 1
-                mask_k = (jnp.uint32(0) - bits_k).astype(jnp.uint32)
-                x = None
-                for t in range(sw + 1):
-                    xb = pf_ref[:, 32 * t : 32 * (t + 1), :] & mask_k[
-                        :, 32 * t : 32 * (t + 1), :
-                    ]
-                    n = 32
-                    while n > 1:
-                        half = n // 2
-                        xb = xb[:, :half, :] ^ xb[:, half:n, :]
-                        n = half
-                    x = xb if x is None else x ^ xb
-                full = arows_in[:, pl.ds(jj, 1), :] ^ x  # (B, 1, wp)
-                mask_has = jnp.where(
-                    has, jnp.uint32(0xFFFFFFFF), jnp.uint32(0)
-                )[:, :, None]  # (B, 1, 1)
-                pf_ref[:, pl.ds(jj, 1), :] = full & mask_has
-                return 0
-
-            lax.fori_loop(0, 32, fwd_step, 0)
-
-        # back-eliminate (triangular): only rows above jj can have bit jj
-        for sw in reversed(range(kw)):
-            rows_used = 32 * (sw + 1)
-            k3u = k3[:, :rows_used, 0]  # (B, rows_used)
-            win_lanes = lax.broadcasted_iota(
-                jnp.int32, (B, rows_used, 128), 2
-            )
-
-            def back_step(s, _, sw=sw, rows_used=rows_used, k3u=k3u,
-                          win_lanes=win_lanes):
-                jj32 = 31 - s
-                jj = 32 * sw + jj32
-                pivoted = (
-                    jnp.swapaxes(prow_ref[pl.ds(jj, 1), :], 0, 1) >= 0
-                )  # (B, 1)
-                wcol = w0 + sw
-                base = pl.multiple_of((wcol >> 7) << 7, 128)
-                lane = wcol - base
-                win = pf_ref[:, :rows_used, pl.ds(base, 128)]
-                colw = jnp.sum(
-                    jnp.where(win_lanes == lane, win.astype(jnp.int32), 0),
-                    axis=2,
-                ).astype(jnp.uint32)  # (B, rows_used)
-                colb = (colw >> jj32.astype(jnp.uint32)) & 1
-                elim = (colb == 1) & (k3u != jj) & pivoted
-                em = jnp.where(
-                    elim, jnp.uint32(0xFFFFFFFF), jnp.uint32(0)
-                )  # (B, rows_used)
-                pfrow = pf_ref[:, pl.ds(jj, 1), :]  # (B, 1, wp)
-                pf_ref[:, :rows_used, :] = pf_ref[:, :rows_used, :] ^ (
-                    em[:, :, None] & pfrow
-                )
-                return 0
-
-            lax.fori_loop(0, 32, back_step, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(3, 4, 5))
-def _scan_batched(bT, used, w0, K: int, cols: int, interpret: bool):
-    B, kw, rows = bT.shape
-    w0_arr = jnp.asarray(w0, jnp.int32).reshape(1)
-    prow_t, used_o, cT = pl.pallas_call(
-        _make_scan_kernel_b(B, rows, K, kw, cols),
-        out_shape=(
-            jax.ShapeDtypeStruct((K, B), jnp.int32),
-            jax.ShapeDtypeStruct((B, rows), jnp.int32),
-            jax.ShapeDtypeStruct((B, kw, rows), jnp.uint32),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[pltpu.VMEM((B, kw, rows), jnp.uint32)],
-        interpret=interpret,
-    )(w0_arr, bT, used)
-    return jnp.swapaxes(prow_t, 0, 1), used_o, cT
-
-
-@functools.partial(jax.jit, static_argnums=(4, 5))
-def _reconstruct_batched(arows, coeff, prow, w0, K: int, interpret: bool):
-    B, _, wp = arows.shape
-    kw = K // 32
-    assert wp % 128 == 0
-    w0_arr = jnp.asarray(w0, jnp.int32).reshape(1)
-    prow_t = jnp.swapaxes(prow, 0, 1)  # (K, B)
-    coeff_t = jnp.swapaxes(coeff, 0, 1)  # (K, B, kw)
-    return pl.pallas_call(
-        _make_reconstruct_kernel_b(B, wp, K, kw),
-        out_shape=jax.ShapeDtypeStruct((B, K, wp), jnp.uint32),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(w0_arr, prow_t, coeff_t, arows)
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def rref_blocked_batched(
-    a: jnp.ndarray,
-    cols: int,
-    k_panel: int = K_PANEL,
-    phase2: str = "jnp",
-    trailing: bool = False,
-    interpret: bool = False,
-):
-    """Batched blocked RREF.  a: (B, rows, wp) uint32, wp % 128 == 0.
-
-    Returns (rref (B, rows, wp), pof (B, cols), inconsistent (B,)) — the
-    batched analog of gauss_blocked.rref_blocked (same per-system results;
-    RREF is unique).  ``trailing`` has the same mode-0 meaning: callers
-    must verify the extracted origin (see solve_batched below).
-    """
-    from . import extract_device
-
-    K = k_panel
-    kw = K // 32
-    B, rows, wp = a.shape
-    panels = wp // kw
-    used0 = jnp.zeros((B, rows), jnp.int32)
-    pof0 = jnp.full((B, cols + 1), -1, jnp.int32)
-    gbit_base = jnp.arange(K, dtype=jnp.int32)
-
-    def panel_body(t, carry):
-        a, used, pof = carry
-        w0 = t * kw
-        b_orig = lax.dynamic_slice(a, (0, 0, w0), (B, rows, kw))
-        bT = jnp.swapaxes(b_orig, 1, 2)  # (B, kw, rows)
-        prow, used_o, cT = _scan_batched(bT, used, w0, K, cols, interpret)
-
-        prow_safe = jnp.maximum(prow, 0)  # (B, K)
-        arows = jnp.take_along_axis(a, prow_safe[:, :, None], axis=1)
-        coeff = jnp.swapaxes(
-            jnp.take_along_axis(cT, prow_safe[:, None, :], axis=2), 1, 2
-        )  # (B, K, kw)
-        pf = _reconstruct_batched(arows, coeff, prow, w0, K, interpret)
-
-        gbit = 32 * w0 + gbit_base
-        dst = jnp.where(prow >= 0, gbit[None, :] - 1, cols)  # (B, K)
-        pof = pof.at[jnp.arange(B)[:, None], dst].set(prow)
-
-        s = jax.vmap(selector_from_prow)(b_orig, prow)  # (B, rows, kw)
-        a = jnp.stack(
-            [
-                apply_rank_k_update(
-                    a[b], s[b], pf[b], phase2, w0=w0 if trailing else None
-                )
-                for b in range(B)
-            ]
-        )
-        return a, used_o, pof
-
-    a, used, pof = lax.fori_loop(0, panels, panel_body, (a, used0, pof0))
-    pof = pof[:, :cols]
-    # inline batched inconsistency (vmapping the jitted single-system helper
-    # trips a JAX lowering-cache bug when nested with the pallas calls here)
-    const_bit = (a[:, :, 0] & 1) == 1
-    var_any = (a[:, :, 0] >> 1) != 0
-    if a.shape[2] > 1:
-        var_any = var_any | jnp.any(a[:, :, 1:] != 0, axis=2)
-    inconsistent = jnp.any(const_bit & ~var_any, axis=1)
-    return a, pof, inconsistent
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
-def rref_origin_batched(
-    a: jnp.ndarray,
-    cols: int,
-    k_panel: int = K_PANEL,
-    phase2: str = "jnp",
-    interpret: bool = False,
-):
-    """Fused batched mode-0: trailing elimination + per-system origin +
-    A.[1|x] parity verification in ONE program.  Returns
-    (origin32 (B, Wsol32), unsat (B,))."""
-    from . import extract_device
-
-    rref32, pof, _ = rref_blocked_batched(
-        a, cols, k_panel, phase2, True, interpret
-    )
-    origins = extract_device._origin_batch(rref32, pof, cols)
-    unsat = jax.vmap(origin_parity_unsat)(a, origins)
-    return origins, unsat
+from .gauss_blocked import K_PANEL, _ROW_BUCKET, rref_blocked, rref_origin_blocked
 
 
 def padded_batch_dims(rows_max: int, w64: int) -> tuple[int, int]:
-    """(rows_pad, wp32): the per-system dims :func:`solve_batched` actually
-    allocates — the ONE place this arithmetic lives, so callers' memory
+    """(rows_pad, wp32): the per-system dims the batched solvers actually
+    allocate — the ONE place this arithmetic lives, so callers' memory
     estimates (parallel/batch.py's device-OOM guard) stay in lock-step."""
     rows_pad = max(_ROW_BUCKET, -(-rows_max // _ROW_BUCKET) * _ROW_BUCKET)
     walign = max(K_PANEL // 32, 128)
@@ -340,121 +39,62 @@ def padded_batch_dims(rows_max: int, w64: int) -> tuple[int, int]:
     return rows_pad, wp
 
 
-# The batch-vectorized kernels carry a (B, K, kw*32)-word scratch through
-# each grid step; past B ~= a few dozen that scoped allocation exceeds
-# Mosaic's 16 MB VMEM limit and the program fails to COMPILE (measured on
-# the chip: B=64 @ 1024 cols and B=256 @ 256 cols both reject with
-# "Scoped allocation ... exceeded scoped vmem limit", B=16 @ 2048 cols
-# fits — BASELINE.md round-5 crossover).  The host entry chunks the batch
-# so callers can pass any B; chunks are padded to the full chunk size with
-# zero systems (harmless for the RREF; results sliced before extraction)
-# so one executable serves every chunk.
-VMEM_BATCH_MAX = 16
+def _stack(eq_mats):
+    """A list of packed (rows_i, W64) systems, or a (B, rows, W32) array,
+    as one zero-padded (B, rows_pad, wp) u32 device array."""
+    if not isinstance(eq_mats, (list, tuple)):
+        return jnp.asarray(eq_mats, jnp.uint32)
+    rows_max = max(m.shape[0] for m in eq_mats)
+    rows_pad, wp = padded_batch_dims(rows_max, eq_mats[0].shape[1])
+    a = np.zeros((len(eq_mats), rows_pad, wp), np.uint32)
+    for i, m in enumerate(eq_mats):
+        a32 = packing.to_u32(m)
+        a[i, : a32.shape[0], : a32.shape[1]] = a32
+    return jnp.asarray(a)
 
 
-def solve_batched(eq_mats, cols: int, mode: int, phase2: str | None = None):
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def rref_blocked_batched(a: jnp.ndarray, cols: int, k_panel: int = K_PANEL):
+    """Blocked RREF of each system of a (B, rows, wp) u32 stack, one after
+    another in one program.  Returns (rref (B, rows, wp), pof (B, cols),
+    inconsistent (B,)), each entry equal to gauss_blocked.rref_blocked's."""
+    return lax.map(lambda m: rref_blocked(m, cols, k_panel), a)
+
+
+def solve_batched(eq_mats, cols: int, mode: int):
     """Batched large-system solve (host entry, gauss_blocked.solve_blocked
     contract per instance): eq_mats is a list of packed (rows_i, W64)
-    systems or a (B, rows, W32) array.  Batches above ``VMEM_BATCH_MAX``
-    run as multiple device programs (see the constant's note).  Returns
-    one entry per system."""
+    systems or a (B, rows, W32) array.  Returns one entry per system."""
     from . import extract_device
-    from .gauss_blocked import _pick_engines
 
-    if isinstance(eq_mats, (list, tuple)):
-        rows_max = max(m.shape[0] for m in eq_mats)
-        rows_pad, wp = padded_batch_dims(rows_max, eq_mats[0].shape[1])
-        a = np.zeros((len(eq_mats), rows_pad, wp), np.uint32)
-        for i, m in enumerate(eq_mats):
-            a32 = packing.to_u32(m)
-            a[i, : a32.shape[0], : a32.shape[1]] = a32
-        a = jnp.asarray(a)
-    else:
-        a = jnp.asarray(eq_mats, jnp.uint32)
-
-    _, auto2 = _pick_engines(a.shape[2])
-    phase2 = phase2 or auto2
-    interpret = jax.default_backend() != "tpu"  # kernels have no jnp twin
-    nb = a.shape[0]
-    out: list = []
-    for c0 in range(0, nb, VMEM_BATCH_MAX):
-        chunk = a[c0 : c0 + VMEM_BATCH_MAX]
-        n = chunk.shape[0]
-        if nb > VMEM_BATCH_MAX and n < VMEM_BATCH_MAX:
-            # pad the tail chunk so every chunk reuses ONE executable
-            chunk = jnp.concatenate(
-                [chunk,
-                 jnp.zeros((VMEM_BATCH_MAX - n, *chunk.shape[1:]),
-                           jnp.uint32)],
-                axis=0,
-            )
-        if mode == 0:
-            origins, unsat = jax.device_get(
-                rref_origin_batched(chunk, cols, K_PANEL, phase2, interpret)
-            )
-            out.extend(
-                None if bool(unsat[b])
-                else packing.from_u32(origins[b][None, :])[0]
-                for b in range(n)
-            )
-        else:
-            rref32, pof, inconsistent = rref_blocked_batched(
-                chunk, cols, K_PANEL, phase2, False, interpret
-            )
-            # slice padding off BEFORE extraction: an all-zero padding
-            # system has dim == cols and would compile a cols-sized
-            # basis bucket for throwaway results
-            out.extend(
-                extract_device.finalize_batch(
-                    rref32[:n], pof[:n], inconsistent[:n], cols, mode
-                )
-            )
-    return out
+    if mode == 0:
+        return solve_chained(eq_mats, cols)
+    rref32, pof, inconsistent = rref_blocked_batched(_stack(eq_mats), cols)
+    return extract_device.finalize_batch(rref32, pof, inconsistent, cols, mode)
 
 
-# LRU-bounded: each entry retains a compiled scan executable sized by the
-# full (B, rows_pad, wp) batch shape, so a caller sweeping batch sizes must
-# not accumulate one program per shape for the process lifetime (the lazy
+# LRU-bounded: each entry retains a compiled executable sized by the full
+# (B, rows_pad, wp) batch shape, so a caller sweeping batch sizes must not
+# accumulate one program per shape for the process lifetime (the lazy
 # trace cache is bounded the same way, ops/lazy_solve.py).
 _CHAIN_CACHE_MAX = 8
 _chain_cache: dict = {}
 
 
-def solve_chained(eq_mats, cols: int, phase1: str | None = None,
-                  phase2: str | None = None):
+def solve_chained(eq_mats, cols: int):
     """Mode-0 batch as a device-chained ``lax.scan`` of the SINGLE-system
-    fused solver (gauss_blocked.rref_origin_blocked per step).
-
-    At flagship shapes this beats the batch-vectorized kernel (see the
-    module docstring): each solve runs at full single-system speed
-    (~0.072 s device at MT19937 size vs ~0.107 s/solve batched), and the
-    I/O profile is identical — one dispatch, one stacked (B, W32) origin
-    readback.  Input/return contract matches ``solve_batched`` mode 0.
+    fused solver (gauss_blocked.rref_origin_blocked per step): one
+    dispatch, one stacked (B, W32) origin readback.  Input/return contract
+    matches ``solve_batched`` mode 0.
     """
-    from .gauss_blocked import _pick_engines, rref_origin_blocked
-
-    if isinstance(eq_mats, (list, tuple)):
-        rows_max = max(m.shape[0] for m in eq_mats)
-        rows_pad, wp = padded_batch_dims(rows_max, eq_mats[0].shape[1])
-        a = np.zeros((len(eq_mats), rows_pad, wp), np.uint32)
-        for i, m in enumerate(eq_mats):
-            a32 = packing.to_u32(m)
-            a[i, : a32.shape[0], : a32.shape[1]] = a32
-        a = jnp.asarray(a)
-    else:
-        a = jnp.asarray(eq_mats, jnp.uint32)
-
-    auto1, auto2 = _pick_engines(a.shape[2])
-    phase1 = phase1 or auto1
-    phase2 = phase2 or auto2
-    key = (a.shape, cols, phase1, phase2)
+    a = _stack(eq_mats)
+    key = (a.shape, cols)
     fn = _chain_cache.pop(key, None)
     if fn is None:
 
         def chained(a):
             def body(carry, ai):
-                o, u = rref_origin_blocked(ai, cols, K_PANEL, phase2, phase1)
-                return carry, (o, u)
+                return carry, rref_origin_blocked(ai, cols)
 
             _, (origins, unsat) = lax.scan(body, 0, a)
             return origins, unsat

@@ -1,27 +1,24 @@
 """Panel-blocked Gauss-Jordan to RREF (v2) — the large-system fast path.
 
 The per-pivot v1 (gauss_jax.py) reads and writes the whole matrix once per
-column: ~cols full-matrix passes, hopelessly HBM-bound at MT19937 size
-(19969 x ~100 MB).  This module restructures the elimination the way M4RI's
-PLE decomposition does (PAPERS.md: arXiv 1111.6549 / 1006.1744), but
-organized for the TPU memory hierarchy:
+column: ~cols full-matrix passes, hopelessly bandwidth-bound at MT19937
+size (19969 x ~52 MB).  This module restructures the elimination the way
+M4RI's PLE decomposition does (PAPERS.md: arXiv 1111.6549 / 1006.1744):
 
-Per K-column panel (K = 128 by default):
-  phase 1 (thin, sequential): forward-eliminate on the (rows, K/32)-word
-    slice only, tracking per-row elimination coefficients C; reconstruct
-    each *forward* pivot row at full width as
+Per K-column panel (K = 256 by default):
+  phase 1 (thin, sequential, :func:`phase1_panel`): forward-eliminate on the
+    (rows, K/32)-word slice only, tracking per-row elimination coefficients
+    C; reconstruct each *forward* pivot row at full width as
     ``PF_fwd[j] = A[piv] ^ xor-combo(PF_fwd, C[piv])``; then back-eliminate
     the K pivot rows against each other so PF becomes the panel's *final*
     (intra-panel RREF) pivot rows.
-  phase 2 (bulk): one rank-K update of the whole matrix.  Identity: with
-    pivot columns c_j and final pivot rows PF,
+  phase 2 (bulk, :func:`apply_rank_k_update`): one rank-K update of the
+    whole matrix.  Identity: with pivot columns c_j and final pivot rows PF,
         row_i_final = row_i_orig ^ sum_j alpha_ij PF[j],
         alpha_ij    = B_orig[i][c_j]  (+1 for i == pivot_row_j)
     because the final pivot rows form the identity on pivot columns.  So the
     update coefficients come straight from the *saved original* panel slice —
-    no transformation tracking through the bulk matrix.  The update is
-    applied G = 32 selector bits per fused pass, so the whole matrix is
-    streamed cols/G times total (vs cols times for v1).
+    no transformation tracking through the bulk matrix.
 
 The result is bit-identical to v1's RREF (RREF is unique), so extraction is
 shared.  Replaces m4ri_solve's PLUQ+TRSM+kernel path
@@ -40,8 +37,10 @@ from jax import lax
 
 from ..core import packing
 
-K_PANEL = 256  # panel width in bits (halves full-matrix passes vs 128;
-# phase-1 cost is K-independent: same total pivot count)
+# Panel width in bits, and the solver's row bucket and word alignment
+# (``_pad(..., word_align=128)`` at the call sites): tuned on another
+# machine, to re-measure (ROADMAP S3).
+K_PANEL = 256
 _G = 32  # selector bits folded into one fused full-matrix pass
 _ROW_BUCKET = 256
 
@@ -50,9 +49,9 @@ def rank_k_update_jnp(a, s, pf):
     """a ^= XOR_{jj: s[i] bit jj} pf[jj], the portable jnp formulation.
 
     a: (rows, wp) u32; s: (rows, kw) u32 selector words; pf: (32*kw, wp).
-    One xor-reduce op per selector word keeps the XLA graph small (an
-    unrolled 32-term chain compiled for many minutes on TPU); the
-    broadcasted AND fuses into the reduction emitter.
+    One xor-reduce op per selector word keeps the XLA graph small; the
+    broadcasted AND fuses into the reduction.  Updates the full width
+    (the trailing skip is the kernel engine's alone).
     """
     kw = s.shape[1]
     bshift = jnp.arange(_G, dtype=jnp.uint32)
@@ -67,37 +66,110 @@ def rank_k_update_jnp(a, s, pf):
     return a
 
 
-def apply_rank_k_update(a, s, pf, phase2: str, w0=None):
-    """Dispatch the phase-2 bulk update to the selected engine.
+PHASE2_ENGINES = ("jnp", "triton")
 
-    ``w0`` (traced scalar, first live word of the panel) enables the
-    trailing-update optimization on the MXU engine; other engines do the
-    (equally correct) full-width update."""
-    if phase2 == "skip":  # diagnostics only: times phase 1 alone
-        return a
-    if phase2.startswith("mxu4"):
-        from .pallas_update import panel_update_mxu4
 
-        return panel_update_mxu4(
-            a, s, pf, interpret=(phase2 == "mxu4_interpret"), w0=w0
-        )
-    if phase2.startswith("mxu2"):
-        from .pallas_update import panel_update_mxu2
+def default_phase2() -> str:
+    """The phase-2 engine for the default backend — the one place it is
+    chosen: the Triton kernel on a GPU, the jnp formulation elsewhere."""
+    return "triton" if jax.default_backend() == "gpu" else "jnp"
 
-        return panel_update_mxu2(
-            a, s, pf, interpret=(phase2 == "mxu2_interpret"), w0=w0
-        )
-    if phase2.startswith("mxu"):
-        from .pallas_update import panel_update_mxu
 
-        return panel_update_mxu(
-            a, s, pf, interpret=(phase2 == "mxu_interpret"), w0=w0
-        )
-    if phase2.startswith("pallas"):
-        from .pallas_update import panel_update
+def apply_rank_k_update(a, s, pf, w0=None, phase2: str | None = None):
+    """The phase-2 bulk update with the selected engine.
 
-        return panel_update(a, s, pf, interpret=(phase2 == "pallas_interpret"))
+    ``w0`` (traced scalar, first word of the panel) enables the trailing
+    skip on the Triton engine; the jnp engine does the (equally correct)
+    full-width update.  Shapes the kernel does not tile take the jnp
+    engine."""
+    phase2 = phase2 or default_phase2()
+    if phase2 not in PHASE2_ENGINES:
+        raise ValueError(f"unknown phase-2 engine {phase2!r}")
+    if phase2 == "triton":
+        from . import triton_update
+
+        if triton_update.tiles(a.shape):
+            return triton_update.rank_k_update_triton(a, s, pf, w0)
     return rank_k_update_jnp(a, s, pf)
+
+
+def phase1_panel(a, b, used, w0, K: int, cols: int):
+    """Phase 1 of one K-column panel: forward pivot scan on the thin slice,
+    full-width reconstruction of each forward pivot row, then the back pass
+    that turns the K pivot rows into the panel's intra-panel RREF.
+
+    a: (rows, wp) u32 (read at the pivot rows only); b: (rows, kw) u32 the
+    panel's slice of ``a``; used: (rows,) bool rows already pivots; w0:
+    traced word offset of the panel.  The pivot of a column is the unused
+    row of lowest index holding it (the tournament solver relies on that
+    order).  Returns (pf (K, wp) final pivot rows, prow (K,) int32 pivot
+    row of each panel column or -1, used').
+    """
+    rows, wp = a.shape
+    kw = K // 32
+    row_ids = lax.broadcasted_iota(jnp.int32, (rows, 1), 0)[:, 0]
+    bit_ids = lax.broadcasted_iota(jnp.int32, (K, 1), 0)[:, 0]
+
+    def xor_select(mat, selbits):
+        """XOR of mat rows (K, wp) selected by packed selbits (kw,) u32."""
+        bits = (selbits[bit_ids >> 5] >> (bit_ids & 31).astype(jnp.uint32)) & 1
+        mask = (jnp.uint32(0) - bits).astype(jnp.uint32)  # 0 or all-ones
+        return jnp.bitwise_xor.reduce(mat & mask[:, None], axis=0)
+
+    def fwd(jj, c):
+        b, cmat, pf, used, prow = c
+        gbit = 32 * w0 + jj  # packed bit position of this panel column
+        valid = (gbit >= 1) & (gbit <= cols)
+        word = jj >> 5
+        shift = (jj & 31).astype(jnp.uint32)
+        colb = (
+            lax.dynamic_index_in_dim(b, word, axis=1, keepdims=False) >> shift
+        ) & 1
+        cand = (colb == 1) & ~used & valid
+        piv = jnp.argmax(cand).astype(jnp.int32)
+        has = cand[piv]
+
+        # reconstruct the forward pivot row at full width
+        arow = lax.dynamic_index_in_dim(a, piv, axis=0, keepdims=False)
+        crow = lax.dynamic_index_in_dim(cmat, piv, axis=0, keepdims=False)
+        full = arow ^ xor_select(pf, crow)
+        pf = pf.at[jj].set(jnp.where(has, full, jnp.zeros_like(full)))
+
+        # eliminate remaining candidates within the slice + record coeffs
+        bpiv = lax.dynamic_index_in_dim(b, piv, axis=0, keepdims=False)
+        elim = cand & (row_ids != piv)
+        b = jnp.where(elim[:, None], b ^ bpiv[None, :], b)
+        cw = lax.dynamic_index_in_dim(cmat, word, axis=1, keepdims=False)
+        cw = cw ^ (elim.astype(jnp.uint32) << shift)
+        cmat = lax.dynamic_update_slice(cmat, cw[:, None], (0, word))
+
+        used = used | ((row_ids == piv) & has)
+        prow = prow.at[jj].set(jnp.where(has, piv, jnp.int32(-1)))
+        return b, cmat, pf, used, prow
+
+    c0 = (
+        b,
+        jnp.zeros((rows, kw), jnp.uint32),
+        jnp.zeros((K, wp), jnp.uint32),
+        used,
+        jnp.full((K,), -1, jnp.int32),
+    )
+    _, _, pf, used, prow = lax.fori_loop(0, K, fwd, c0)
+
+    def back(s, pf):
+        jj = K - 1 - s
+        word = w0 + (jj >> 5)
+        shift = (jj & 31).astype(jnp.uint32)
+        pivoted = prow[jj] >= 0
+        colb = (
+            lax.dynamic_index_in_dim(pf, word, axis=1, keepdims=False) >> shift
+        ) & 1
+        elim = (colb == 1) & (bit_ids != jj) & pivoted
+        pfrow = lax.dynamic_index_in_dim(pf, jj, axis=0, keepdims=False)
+        return jnp.where(elim[:, None], pf ^ pfrow[None, :], pf)
+
+    pf = lax.fori_loop(0, K, back, pf)
+    return pf, prow, used
 
 
 def selector_from_prow(b_orig, prow, owned=None, local_idx=None):
@@ -132,34 +204,34 @@ def selector_from_prow(b_orig, prow, owned=None, local_idx=None):
     return s_ext.at[prow_safe, wordidx].set(gathered ^ bitval)[:rows]
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
 def rref_blocked(
     a: jnp.ndarray,
     cols: int,
     k_panel: int = K_PANEL,
-    phase2: str = "jnp",
-    phase1: str = "jnp",
+    phase2: str | None = None,
     trailing: bool = False,
 ):
     """Blocked RREF.  a: (rows, Wp) uint32 with Wp % (k_panel//32) == 0.
 
-    phase2 selects the bulk-update engine: "jnp" (fused xor-reduce, one
-    matrix pass per selector word), "pallas" (VMEM-tiled kernel, one matrix
-    pass per panel), or "pallas_interpret" (for CPU tests).
+    ``phase2`` names the bulk-update engine (:data:`PHASE2_ENGINES`);
+    None takes :func:`default_phase2`.
 
     Returns (rref, pivot_row_of_col, inconsistent) exactly like
     gauss_jax.rref_device.
 
-    ``trailing=True`` (mode-0 fast path) lets the MXU phase-2 engine skip
-    word-tiles left of each panel; once the panel has moved past tile 0,
-    only its const WORD (word 0) keeps being updated — all other columns
-    left of the live panel (earlier pivot columns and free columns) go
-    stale, because a mode-0 origin extraction reads nothing but
-    ``rref[pivot_row, word 0]``.  The returned matrix is then NOT a full
-    RREF left of the last panel, and the ``inconsistent`` flag is
-    unreliable — callers must verify the extracted solution against the
-    original system instead (rref_origin_blocked does).
+    ``trailing=True`` (mode-0 fast path) lets the kernel engine skip word
+    tiles left of each panel; once the panel has moved past the first
+    tile, only that tile (which holds the const WORD, word 0) keeps being
+    updated — the other columns left of the live panel (earlier pivot
+    columns and free columns) go stale, because a mode-0 origin extraction
+    reads nothing but ``rref[pivot_row, word 0]``.  The returned matrix is
+    then NOT a full RREF left of the last panel, and the ``inconsistent``
+    flag is unreliable — callers must verify the extracted solution against
+    the original system instead (rref_origin_blocked does).
     """
+    from . import extract_device
+
     K = k_panel
     kw = K // 32
     rows, wp = a.shape
@@ -167,303 +239,26 @@ def rref_blocked(
     # words beyond them (width padding, multi-RHS columns) are carried
     # along by the rank-K updates but never host a panel themselves
     panels = min(wp // kw, -(-(1 + cols) // (32 * kw)))
-    row_ids = lax.broadcasted_iota(jnp.int32, (rows, 1), 0)[:, 0]
-    pf_ids = lax.broadcasted_iota(jnp.int32, (K, 1), 0)[:, 0]
-    bit_ids = pf_ids  # (K,) 0..K-1
+    bit_ids = lax.broadcasted_iota(jnp.int32, (K, 1), 0)[:, 0]
     used0 = jnp.zeros((rows,), jnp.bool_)
-    # pof padded by one dump slot for invalid/dumped writes
+    # pof padded by one dump slot for free columns' writes
     pof0 = jnp.full((cols + 1,), -1, jnp.int32)
 
-    def xor_select(mat, selbits):
-        """XOR of mat rows (K, Wp) selected by packed selbits (kw,) u32."""
-        bits = (selbits[bit_ids >> 5] >> (bit_ids & 31).astype(jnp.uint32)) & 1
-        mask = (jnp.uint32(0) - bits).astype(jnp.uint32)  # 0 or all-ones
-        return jnp.bitwise_xor.reduce(mat & mask[:, None], axis=0)
-
-    if phase2.startswith("mxu_la"):
-        from .pallas_update import la_grid
-
-        if la_grid(rows, wp)[2] * 32 >= K and wp % 128 == 0:
-            return _rref_lookahead(
-                a, cols, K, kw, rows, wp, panels, pof0, trailing,
-                interpret=phase2.endswith("_interpret"),
-            )
-        # too few grid steps to finish a panel scan (the kernel caps the
-        # static unroll at 32 steps per grid step): plain MXU engine
-        phase2 = "mxu_interpret" if phase2.endswith("_interpret") else "mxu"
-
-    interp = phase1.endswith("_interpret")
-
-    def _panel_kernel_full(t, a, used, pof, dead_tiles=None):
-        """Kernel-phase-1 panel pass over ALL rows (fused or split)."""
-        w0 = t * kw
-        b_orig = lax.dynamic_slice(a, (0, w0), (rows, kw))
-        if phase1.startswith("pallas_scan") or phase1.startswith("pallas_sub"):
-            from .pallas_phase1 import phase1_panel_split
-
-            variant = (
-                "2" if phase1.startswith("pallas_scan2")
-                else "m" if phase1.startswith("pallas_scanm")
-                else ""
-            )
-
-            def p1fn(*args, **kw_):
-                return phase1_panel_split(*args, variant=variant, **kw_)
-        else:
-            from .pallas_phase1 import phase1_panel as p1fn
-
-        pf, prow, used_o = p1fn(
-            a, b_orig.T, used.astype(jnp.int32)[None, :], w0, K, cols,
-            interpret=interp,
-        )
-        used = used_o[0] > 0
-        gbit = 32 * w0 + bit_ids
-        dst = jnp.where(prow >= 0, gbit - 1, cols)  # dump slot at cols
-        pof = pof.at[dst].set(prow)
-        return _panel_tail(a, b_orig, pf, prow, pof, used, w0, dead_tiles)
-
-    def _panel_kernel_subset(t, a, used, pof, dead_tiles=None):
-        """Scan only the first S unused rows (pivot = min global row index,
-        so the subset winner IS the global winner whenever the subset sees
-        the column at all); a post-update deficit check falls back to a
-        full-row pass on the rare structured system that needs it.
-
-        Measured on MT19937-size systems this does NOT beat the full scan —
-        the scan kernel is per-step-latency-bound, not lane-width-bound, and
-        the per-panel compaction/checks cost more than they save — so it is
-        an opt-in engine (GF2BV_TPU_PHASE1=pallas_sub) for workloads with
-        rows >> cols, where the full scan's lane width dominates."""
-        from .pallas_phase1 import SUBSET_ROWS as S
-        from .pallas_phase1 import phase1_scan_subset, phase1_reconstruct
-
-        w0 = t * kw
-        b_orig = lax.dynamic_slice(a, (0, w0), (rows, kw))
-
-        # compact the first S unused row indices (ascending)
-        unused_i = (~used).astype(jnp.int32)
-        slot = jnp.cumsum(unused_i) - 1  # slot of each unused row
-        take = (unused_i == 1) & (slot < S)
-        subset_idx = (
-            jnp.zeros((S,), jnp.int32)
-            .at[jnp.where(take, slot, S)]
-            .set(row_ids, mode="drop")
-        )
-        n_sub = jnp.minimum(slot[-1] + 1, S)
-        bT_c = b_orig[subset_idx].T  # (kw, S)
-        slot_ids = lax.broadcasted_iota(jnp.int32, (1, S), 1)
-        used_in = (slot_ids >= n_sub).astype(jnp.int32)  # padding = used
-
-        prow_l, cT_c = phase1_scan_subset(bT_c, used_in, w0, K, cols, interp)
-        prow = jnp.where(prow_l >= 0, subset_idx[jnp.maximum(prow_l, 0)], -1)
-        coeff = cT_c[:, jnp.maximum(prow_l, 0)].T  # (K, kw)
-        arows = a[jnp.maximum(prow, 0)]  # (K, wp)
-        pf = phase1_reconstruct(arows, coeff, prow, w0, K, cols, interp)
-
-        used = used | jnp.zeros((rows,), jnp.bool_).at[
-            jnp.where(prow >= 0, prow, rows)
-        ].set(True, mode="drop")
-        gbit = 32 * w0 + bit_ids
-        dst = jnp.where(prow >= 0, gbit - 1, cols)
-        pof = pof.at[dst].set(prow)
-        a, used, pof = _panel_tail(a, b_orig, pf, prow, pof, used, w0, dead_tiles)
-
-        # deficit check: a claimed-free column with a live bit in some
-        # unused row means the subset missed a pivot -> full fallback pass
-        valid_bit = (gbit >= 1) & (gbit <= cols)
-        freebit = ((prow < 0) & valid_bit).astype(jnp.uint32) << (
-            bit_ids & 31
-        ).astype(jnp.uint32)
-        freemask = jnp.zeros((kw,), jnp.uint32).at[bit_ids >> 5].add(freebit)
-        b_post = lax.dynamic_slice(a, (0, w0), (rows, kw))
-        live = jnp.any((b_post & freemask[None, :]) != 0, axis=1) & ~used
-        deficit = jnp.any(live)
-        return lax.cond(
-            deficit,
-            lambda ops: _panel_kernel_full(t, *ops, dead_tiles),
-            lambda ops: ops,
-            (a, used, pof),
-        )
-
-    def panel_body(t, carry, dead_tiles=None):
+    def panel_body(t, carry):
         a, used, pof = carry
-        if phase1.startswith("pallas_sub"):
-            return _panel_kernel_subset(t, a, used, pof, dead_tiles)
-        if phase1.startswith("pallas"):
-            return _panel_kernel_full(t, a, used, pof, dead_tiles)
         w0 = t * kw
         b_orig = lax.dynamic_slice(a, (0, w0), (rows, kw))
-
-        # ---- phase 1: thin forward elimination on the slice ------------
-        def p1(jj, c):
-            b, cmat, pf, used, pof, prow = c
-            gbit = 32 * w0 + jj  # packed bit position of this panel column
-            valid = (gbit >= 1) & (gbit <= cols)
-            word = jj >> 5
-            shift = (jj & 31).astype(jnp.uint32)
-            colb = (
-                lax.dynamic_index_in_dim(b, word, axis=1, keepdims=False) >> shift
-            ) & 1
-            cand = (colb == 1) & ~used & valid
-            piv = jnp.argmax(cand).astype(jnp.int32)
-            has = cand[piv]
-
-            # reconstruct the forward pivot row at full width
-            arow = lax.dynamic_index_in_dim(a, piv, axis=0, keepdims=False)
-            crow = lax.dynamic_index_in_dim(cmat, piv, axis=0, keepdims=False)
-            full = arow ^ xor_select(pf, crow)
-            pf = pf.at[jj].set(jnp.where(has, full, jnp.zeros_like(full)))
-
-            # eliminate remaining candidates within the slice + record coeffs
-            bpiv = lax.dynamic_index_in_dim(b, piv, axis=0, keepdims=False)
-            elim = cand & (row_ids != piv)
-            b = jnp.where(elim[:, None], b ^ bpiv[None, :], b)
-            cw = lax.dynamic_index_in_dim(cmat, word, axis=1, keepdims=False)
-            cw = cw ^ (elim.astype(jnp.uint32) << shift)
-            cmat = lax.dynamic_update_slice(cmat, cw[:, None], (0, word))
-
-            used = used | ((row_ids == piv) & has)
-            prow = prow.at[jj].set(jnp.where(has, piv, jnp.int32(-1)))
-            dst = jnp.where(valid & has, gbit - 1, cols)  # dump slot at cols
-            pof = pof.at[dst].set(jnp.where(has, piv, jnp.int32(-1)))
-            return b, cmat, pf, used, pof, prow
-
-        b0 = b_orig
-        c0 = jnp.zeros((rows, kw), jnp.uint32)
-        pf0 = jnp.zeros((K, wp), jnp.uint32)
-        prow0 = jnp.full((K,), -1, jnp.int32)
-        _, _, pf, used, pof, prow = lax.fori_loop(
-            0, K, p1, (b0, c0, pf0, used, pof, prow0)
-        )
-
-        # ---- phase 1b: back-eliminate pivot rows -> intra-panel RREF ----
-        def p1b(s, pf):
-            jj = K - 1 - s
-            word = w0 + (jj >> 5)
-            shift = (jj & 31).astype(jnp.uint32)
-            pivoted = prow[jj] >= 0
-            colb = (
-                lax.dynamic_index_in_dim(pf, word, axis=1, keepdims=False) >> shift
-            ) & 1
-            elim = (colb == 1) & (pf_ids != jj) & pivoted
-            pfrow = lax.dynamic_index_in_dim(pf, jj, axis=0, keepdims=False)
-            return jnp.where(elim[:, None], pf ^ pfrow[None, :], pf)
-
-        pf = lax.fori_loop(0, K, p1b, pf)
-        return _panel_tail(a, b_orig, pf, prow, pof, used, w0, dead_tiles)
-
-    def _panel_tail(a, b_orig, pf, prow, pof, used, w0, dead_tiles=None):
+        pf, prow, used = phase1_panel(a, b_orig, used, w0, K, cols)
+        dst = jnp.where(prow >= 0, 32 * w0 + bit_ids - 1, cols)
+        pof = pof.at[dst].set(prow)
         # selector matrix from the SAVED original slice, then the rank-K
-        # bulk update with the selected engine
+        # bulk update
         s = selector_from_prow(b_orig, prow)
-        if dead_tiles is not None:
-            # segmented trailing mode: dead_tiles is a STATIC per-segment
-            # count; >= 1 routes to the grid-compressed kernel that never
-            # touches dead tiles, 0 (no skippable tiles yet) to the plain
-            # full update (no SMEM/pl.when trailing machinery needed)
-            if dead_tiles >= 1:
-                from .pallas_update import panel_update_mxu_seg
-
-                a = panel_update_mxu_seg(
-                    a, s, pf, dead_tiles,
-                    interpret=phase2.endswith("_interpret"),
-                )
-            else:
-                a = apply_rank_k_update(a, s, pf, phase2, w0=None)
-        else:
-            a = apply_rank_k_update(
-                a, s, pf, phase2, w0=w0 if trailing else None
-            )
+        a = apply_rank_k_update(a, s, pf, w0 if trailing else None, phase2)
         return a, used, pof
 
-    # Trailing mode-0 with the MXU engine runs a SEGMENTED panel loop: the
-    # number of fully-dead 128-word tiles d(t) = (t*kw) // 128 is a static
-    # function of the panel index, so panels are grouped by it and each
-    # segment's update excludes its dead tiles from the Pallas grid
-    # entirely.  The round-4 hardware sweep measured a ~0.2 ms/call fixed
-    # floor from skipped tiles copy-read+written through VMEM (~16 ms
-    # across the flagship's 78 panels); this removes that traffic
-    # structurally.  Opt out with GF2BV_TPU_PHASE2=mxu_noseg.
-    seg_trailing = (
-        trailing
-        and phase2 in ("mxu", "mxu_interpret")
-        and wp % 128 == 0
-        and 128 % kw == 0
-    )
-    if seg_trailing:
-        tpp = 128 // kw  # panels per dead-tile increment
-        nj = wp // 128
-        carry = (a, used0, pof0)
-        for s_ in range(min(nj, -(-panels // tpp))):
-            t0, t1 = s_ * tpp, min(panels, (s_ + 1) * tpp)
-            carry = lax.fori_loop(
-                t0, t1, functools.partial(panel_body, dead_tiles=s_), carry
-            )
-        a, used, pof = carry
-    else:
-        a, used, pof = lax.fori_loop(0, panels, panel_body, (a, used0, pof0))
-    pof = pof[:cols]
-
-    from . import extract_device
-
-    return a, pof, extract_device.inconsistent_device(a)
-
-
-def _rref_lookahead(
-    a, cols: int, K: int, kw: int, rows: int, wp: int, panels: int,
-    pof0, trailing: bool, interpret: bool = False
-):
-    """Panel loop restructured for the fused scan+update megakernel
-    (pallas_update.panel_update_mxu_scan): the scan of panel t+1 rides
-    INSIDE the MXU update of panel t, so the two phases overlap on their
-    separate functional units instead of serializing.  Per iteration the
-    only extra serial work is a thin (rows, kw) rank-K pre-update of the
-    next slice (the megakernel's scan needs its input at kernel start) —
-    everything else (reconstruct, selector, pof) is the same glue as the
-    split path.  Bit-identical to the engine it replaces: same scan, same
-    reconstruct, same update formula."""
-    from .pallas_phase1 import _call_scan_kernel, phase1_reconstruct
-    from .pallas_update import panel_update_mxu_scan
-
-    bit_ids = lax.broadcasted_iota(jnp.int32, (K, 1), 0)[:, 0]
-    used0 = jnp.zeros((1, rows), jnp.int32)
-    w0_arr0 = jnp.zeros((1,), jnp.int32)
-    # prologue: standalone scan of panel 0 (nothing to hide it under)
-    prow0, used1, cT0 = _call_scan_kernel(
-        a[:, :kw].T, used0, w0_arr0, K, cols, interpret
-    )
-
-    def la_body(t, carry):
-        a, used, pof, prow, cT = carry
-        w0 = t * kw
-        prow_safe = jnp.maximum(prow, 0)
-        arows = a[prow_safe]
-        coeff = cT[:, prow_safe].T
-        pf = phase1_reconstruct(arows, coeff, prow, w0, K, cols, interpret)
-        b_orig = lax.dynamic_slice(a, (0, w0), (rows, kw))
-        s = selector_from_prow(b_orig, prow)
-        gbit = 32 * w0 + bit_ids
-        dst = jnp.where(prow >= 0, gbit - 1, cols)
-        pof = pof.at[dst].set(prow)
-        # pre-update the NEXT panel's thin slice (clamped reads past the
-        # last panel produce a garbage slice whose scan is all-invalid:
-        # gbit > cols for every column of panel `panels`)
-        w0n = w0 + kw
-        slice_n = lax.dynamic_slice(a, (0, w0n), (rows, kw))
-        pf_n = lax.dynamic_slice(pf, (0, w0n), (K, kw))
-        slice_n = rank_k_update_jnp(slice_n, s, pf_n)
-        a, prow_n, cT_n, used_n = panel_update_mxu_scan(
-            a, s, pf, slice_n.T, used, w0n, cols=cols,
-            w0=w0 if trailing else None, interpret=interpret,
-        )
-        return a, used_n, pof, prow_n, cT_n
-
-    a, _, pof, _, _ = lax.fori_loop(
-        0, panels, la_body, (a, used1, pof0, prow0, cT0)
-    )
-    pof = pof[:cols]
-    from . import extract_device
-
-    return a, pof, extract_device.inconsistent_device(a)
+    a, _, pof = lax.fori_loop(0, panels, panel_body, (a, used0, pof0))
+    return a, pof[:cols], extract_device.inconsistent_device(a)
 
 
 def origin_parity_unsat(a, origin32):
@@ -486,13 +281,12 @@ def origin_parity_unsat(a, origin32):
     return jnp.any((ones & 1) == 1)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def rref_origin_blocked(
     a: jnp.ndarray,
     cols: int,
     k_panel: int = K_PANEL,
-    phase2: str = "jnp",
-    phase1: str = "jnp",
+    phase2: str | None = None,
 ):
     """Fused RREF + mode-0 extraction in ONE device program.
 
@@ -500,14 +294,15 @@ def rref_origin_blocked(
     solve_one needs, so a single dispatch+readback replaces the separate
     rref and origin_device calls.
 
-    Runs the elimination in trailing mode (MXU tiles left of each panel are
-    skipped), which makes the RREF-based inconsistency flag unreliable; the
-    satisfiability verdict instead comes from verifying A·[1|x] parity == 0
-    per row against the ORIGINAL input — strictly stronger (it would also
-    catch an elimination bug) and one cheap fused matrix pass."""
+    Runs the elimination in trailing mode (word tiles left of each panel
+    may be skipped), which makes the RREF-based inconsistency flag
+    unreliable; the satisfiability verdict instead comes from verifying
+    A·[1|x] parity == 0 per row against the ORIGINAL input — strictly
+    stronger (it would also catch an elimination bug) and one cheap fused
+    matrix pass."""
     from . import extract_device
 
-    rref32, pof, _ = rref_blocked(a, cols, k_panel, phase2, phase1, True)
+    rref32, pof, _ = rref_blocked(a, cols, k_panel, phase2, True)
     origin32 = extract_device.origin_device(rref32, pof, cols)
     return origin32, origin_parity_unsat(a, origin32)
 
@@ -533,28 +328,12 @@ def _pad_device(a32, k_panel: int, word_align: int = 1):
     return jnp.pad(a32, ((0, want_rows - rows), (0, want_w - w32)))
 
 
-def _pick_engines(wp: int) -> tuple[str, str]:
-    """(phase1, phase2): pallas kernels need >= 128 lanes and a real TPU;
-    small systems / other backends use the jnp paths."""
-    import os
-
-    if wp % 128 == 0 and jax.default_backend() == "tpu":
-        p1, p2 = "pallas_scan", "mxu"
-    else:
-        p1, p2 = "jnp", "jnp"
-    return (
-        os.environ.get("GF2BV_TPU_PHASE1", p1),
-        os.environ.get("GF2BV_TPU_PHASE2", p2),
-    )
-
-
 def solve_blocked(
     eqs: np.ndarray,
     cols: int,
     mode: int,
     k_panel: int = K_PANEL,
     phase2: str | None = None,
-    phase1: str | None = None,
 ):
     """Drop-in replacement for gauss_jax.solve_jax; same return contract."""
     from . import extract_device
@@ -562,24 +341,18 @@ def solve_blocked(
 
     with profiling.phase("pad"):
         a32 = _pad(eqs, k_panel, word_align=128)
-    auto1, auto2 = _pick_engines(a32.shape[1])
-    phase1 = phase1 or auto1
-    phase2 = phase2 or auto2
     with profiling.phase("h2d"):
         a_dev = jnp.asarray(a32)
         a_dev.block_until_ready()
     if mode == 0:
         with profiling.phase("rref+origin"):
-            origin32, inconsistent = rref_origin_blocked(
-                a_dev, cols, k_panel, phase2, phase1
+            origin32, inconsistent = jax.device_get(
+                rref_origin_blocked(a_dev, cols, k_panel, phase2)
             )
-            origin32, inconsistent = jax.device_get((origin32, inconsistent))
         if bool(inconsistent):
             return None
         return packing.from_u32(origin32[None, :])[0]
     with profiling.phase("rref"):
-        rref32, pof, inconsistent = rref_blocked(
-            a_dev, cols, k_panel, phase2, phase1
-        )
+        rref32, pof, inconsistent = rref_blocked(a_dev, cols, k_panel, phase2)
     with profiling.phase("extract"):
         return extract_device.finalize(rref32, pof, inconsistent, cols, mode)

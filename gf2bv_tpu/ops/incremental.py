@@ -32,15 +32,10 @@ new row (or rebuilds per-panel XOR tables, which costs the same as a bulk
 elimination pass), so at flagship scale an incremental host add costs
 about as much as the native engine's 0.3 s from-scratch solve.
 
-HARDWARE VERDICT (round 5, measured — scripts/bench_incremental.py,
-BASELINE.md): at the flagship 19968-var shape an add does NOT beat a
-from-scratch solve.  add(128) = 138 ms, add(512) = 228 ms,
-add(2048) = 619 ms, online-attack round (add 128 + rank readback) =
-~125 ms median, vs 97.8 ms for the from-scratch fused mode-0 solve at
-the same total shape.  The three add passes are full-matrix
-HBM sweeps without the blocked solver's panel locality/trailing skips,
-so their traffic alone exceeds the (extremely fast) fused elimination.
-Use this class for its ONLINE SEMANTICS — device-resident state across
+Speed: scripts/bench_incremental.py times add() against a from-scratch
+fused solve at the flagship 19968-var shape (on the GPU: not measured
+yet).  The three add passes are full-matrix sweeps without the blocked
+solver's panel locality/trailing skips.  Use this class for its ONLINE SEMANTICS — device-resident state across
 observation rounds, rank/dimension after every add without re-uploading
 or re-eliminating anything, sticky unsat — not for per-round speed at
 flagship scale; for raw throughput re-solve from scratch (solve_blocked)
@@ -201,7 +196,7 @@ class IncrementalSolver:
 
     def _init_packed(self, system, eqs, cols, slack, k_panel):
         from . import extract_device
-        from .gauss_blocked import K_PANEL, _pad, _pick_engines, rref_blocked
+        from .gauss_blocked import K_PANEL, _pad, rref_blocked
 
         self.system = system
         self._cols = cols
@@ -212,10 +207,7 @@ class IncrementalSolver:
             want_w = -(-(1 + self._cols) // 32)
             wp = -(-want_w // 128) * 128
             a32 = np.zeros((128, wp), np.uint32)
-        p1, p2 = _pick_engines(a32.shape[1])
-        rref32, pof, bad = rref_blocked(
-            jnp.asarray(a32), self._cols, k_panel, p2, p1
-        )
+        rref32, pof, bad = rref_blocked(jnp.asarray(a32), self._cols, k_panel)
         self._unsat = bool(bad)
         rows, wp = rref32.shape
         cap = rows + (-(-slack // 128) * 128)

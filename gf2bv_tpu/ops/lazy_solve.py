@@ -41,7 +41,7 @@ _CACHE: "OrderedDict[bytes, _CachedSystem]" = OrderedDict()
 class _CachedSystem:
     __slots__ = (
         "a_dev", "a_host", "kept", "kept_mask", "struct_aff", "widths",
-        "rows_padded", "backend", "phase1", "phase2", "basis_cache",
+        "rows_padded", "backend", "basis_cache",
     )
 
 
@@ -64,7 +64,7 @@ def clear_cache() -> None:
 
 
 def _build(system, exprs, key) -> _CachedSystem:
-    from .gauss_blocked import K_PANEL, _pad, _pick_engines
+    from .gauss_blocked import K_PANEL, _pad
     from .gauss_jax import _pad_rows
 
     cs = _CachedSystem()
@@ -89,14 +89,13 @@ def _build(system, exprs, key) -> _CachedSystem:
         cs.a_host = np.ascontiguousarray(eqs)
         cs.basis_cache = {}
         cs.rows_padded = eqs.shape[0]
-        cs.a_dev = cs.phase1 = cs.phase2 = None
+        cs.a_dev = None
     else:
         if cs.backend == "blocked":
             a32 = _pad(eqs, K_PANEL, word_align=128)
         else:
             a32 = _pad_rows(packing.to_u32(eqs), system._cols)
         cs.rows_padded = a32.shape[0]
-        cs.phase1, cs.phase2 = _pick_engines(a32.shape[1])
         cs.a_dev = jnp.asarray(np.ascontiguousarray(a32))
 
     _CACHE[key] = cs
@@ -105,20 +104,18 @@ def _build(system, exprs, key) -> _CachedSystem:
     return cs
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _fused0_blocked(a, delta, cols, k_panel, phase2, phase1):
+@functools.partial(jax.jit, static_argnums=(2,))
+def _fused0_blocked(a, delta, cols):
     from .gauss_blocked import rref_origin_blocked
 
-    a = a.at[:, 0].set(a[:, 0] ^ delta)
-    return rref_origin_blocked(a, cols, k_panel, phase2, phase1)
+    return rref_origin_blocked(a.at[:, 0].set(a[:, 0] ^ delta), cols)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _fused1_blocked(a, delta, cols, k_panel, phase2, phase1):
+@functools.partial(jax.jit, static_argnums=(2,))
+def _fused1_blocked(a, delta, cols):
     from .gauss_blocked import rref_blocked
 
-    a = a.at[:, 0].set(a[:, 0] ^ delta)
-    return rref_blocked(a, cols, k_panel, phase2, phase1)
+    return rref_blocked(a.at[:, 0].set(a[:, 0] ^ delta), cols)
 
 
 @functools.partial(jax.jit, static_argnums=(2,))
@@ -146,18 +143,10 @@ def cached_system(system, zeros) -> "_CachedSystem":
     """The device-cached coefficient structure for a lazy zeros list,
     building (and LRU-inserting) it on first sight."""
     exprs = [z._expr for z in zeros]
-    # backend AND the phase-engine env knobs are part of the key: a cache
-    # hit must not keep stale engines after a GF2BV_TPU_BACKEND/PHASE1/
-    # PHASE2 change (the resolved engine names are cached in _CachedSystem)
-    knobs = ":".join(
-        os.environ.get(k, "")
-        for k in ("GF2BV_TPU_PHASE1", "GF2BV_TPU_PHASE2")
-    )
+    # the backend is part of the key: a cache hit must not keep a stale
+    # backend after a GF2BV_TPU_BACKEND change
     key = lazy.struct_key(
-        exprs,
-        extra=lazy._ints(system._cols)
-        + _backend_for(system).encode()
-        + knobs.encode(),
+        exprs, extra=lazy._ints(system._cols) + _backend_for(system).encode()
     )
     cs = _CACHE.get(key)
     if cs is None:
@@ -170,7 +159,6 @@ def cached_system(system, zeros) -> "_CachedSystem":
 def solve_lazy(system, zeros, mode: int, env=None):
     """The fused fast path.  Same return contract as ops.solver.solve.
     ``env`` binds captured-trace Params (core/lazy.Param) per instance."""
-    from .gauss_blocked import K_PANEL
     from . import extract_device
 
     cols = system._cols
@@ -204,9 +192,7 @@ def solve_lazy(system, zeros, mode: int, env=None):
     if mode == 0:
         if cs.backend == "blocked":
             origin32, unsat = jax.device_get(
-                _fused0_blocked(
-                    cs.a_dev, delta_dev, cols, K_PANEL, cs.phase2, cs.phase1
-                )
+                _fused0_blocked(cs.a_dev, delta_dev, cols)
             )
         else:
             origin32, unsat = jax.device_get(
@@ -217,9 +203,7 @@ def solve_lazy(system, zeros, mode: int, env=None):
         return packing.words_to_int(packing.from_u32(origin32[None, :])[0])
 
     if cs.backend == "blocked":
-        rref32, pof, inc = _fused1_blocked(
-            cs.a_dev, delta_dev, cols, K_PANEL, cs.phase2, cs.phase1
-        )
+        rref32, pof, inc = _fused1_blocked(cs.a_dev, delta_dev, cols)
     else:
         rref32, pof, inc = _fused1_jax(cs.a_dev, delta_dev, cols)
     raw = extract_device.finalize(rref32, pof, inc, cols, mode)

@@ -7,17 +7,18 @@ The device-facing analog of the reference's single native entry point
 * mode 1 -> the full affine solution space, or None if unsatisfiable
 
 Backends:
-* ``jax``     — Gauss-Jordan on the default JAX device (TPU), gauss_jax.py
-* ``blocked`` — panel-blocked elimination (TPU, large systems), gauss_blocked.py
+* ``jax``     — Gauss-Jordan on the default JAX device, gauss_jax.py
+* ``blocked`` — panel-blocked elimination (large systems), gauss_blocked.py
+* ``native``  — the C engine on the host CPU, _native/
 * ``oracle``  — slow host numpy reference, gauss_ref.py
 
 ``auto`` (or None) picks blocked for large systems, jax otherwise — unless
 the process is pinned to the host CPU (no accelerator), where the native C
-engine beats the XLA-CPU emulation of the TPU kernels by 1-2 orders of
+engine beats XLA's CPU code for the device paths by 1-2 orders of
 magnitude and is picked instead (opt out: GF2BV_TPU_CPU_NATIVE=0, which the
-test suite sets so the TPU code paths stay covered on the virtual-device
-mesh).  Unknown backend names raise instead of silently running the wrong
-engine.
+test suite sets so the device code paths stay covered on the virtual-device
+mesh).  On a GPU the device paths are always taken.  Unknown backend names
+raise instead of silently running the wrong engine.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from ..core.affine import AffineSpace
 
 # Column count at or above which the panel-blocked solver wins over the
 # per-pivot loop (the per-pivot loop is latency-bound at ~cols sequential
-# steps; blocking amortizes them _KCOLS at a time).
+# steps; blocking amortizes them K_PANEL at a time).  Tuned on another
+# machine, to re-measure (ROADMAP S3).
 _BLOCKED_THRESHOLD = 1024
 
 _BACKENDS = ("jax", "blocked", "native", "oracle")
@@ -123,20 +125,17 @@ def solve_packed(eqs, cols: int, mode: int, backend: str | None = None):
 
     if backend == "blocked":
         from .gauss_blocked import (
-            K_PANEL, _pad_device, _pick_engines, rref_blocked,
-            rref_origin_blocked,
+            K_PANEL, _pad_device, rref_blocked, rref_origin_blocked,
         )
 
+        # 128-word alignment: see gauss_blocked.K_PANEL
         a = _pad_device(jnp.asarray(eqs, jnp.uint32), K_PANEL, 128)
-        p1, p2 = _pick_engines(a.shape[1])
         if mode == 0:
-            origin32, unsat = jax.device_get(
-                rref_origin_blocked(a, cols, K_PANEL, p2, p1)
-            )
+            origin32, unsat = jax.device_get(rref_origin_blocked(a, cols))
             if bool(unsat):
                 return None
             return packing.words_to_int(packing.from_u32(origin32[None, :])[0])
-        rref32, pof, inc = rref_blocked(a, cols, K_PANEL, p2, p1)
+        rref32, pof, inc = rref_blocked(a, cols)
     else:
         from .gauss_jax import _ROW_BUCKET, rref_device, rref_origin_device
 

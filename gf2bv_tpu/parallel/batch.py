@@ -22,13 +22,9 @@ from ..core import packing
 from ..core.affine import AffineSpace
 from . import mesh as meshlib
 
-# Batch-route crossover, measured on the chip (BASELINE.md round-5
-# "Batched-solver crossover", scripts/bench_batch_crossover.py): the
-# vmapped per-pivot kernel wins through 1024 cols (6231/3030/1152 solves/s
-# at 256/512/1024 vs chained 2188/1373/755) and loses from 2048 up (267
-# vs batched 332 / chained 303 at 2048; 33 vs 118/135 at 4096).  The old
-# constant here was the single-solve blocked threshold (1024), which
-# mis-routed the 1024..2047 band.
+# Batch-route crossover between the vmapped per-pivot kernel and the
+# blocked family (scripts/bench_batch_crossover.py measures it): tuned on
+# another machine, to re-measure (ROADMAP S3).
 _PER_PIVOT_MAX_COLS = 2048
 
 
@@ -68,7 +64,7 @@ def solve_batch(
     The vmapped kernel is the per-pivot one (cols sequential full-matrix
     passes per instance) — the right shape for the many-small-systems
     pattern this axis exists for.  From ``_PER_PIVOT_MAX_COLS`` up the
-    per-pivot form loses to the blocked family (measured crossover below),
+    per-pivot form loses to the blocked family (crossover: the constant),
     so wide systems route through the panel-blocked solvers instead.
     """
     if not eq_mats:
@@ -88,11 +84,7 @@ def solve_batch(
             )
         # one stacked device program (ops/gauss_batched) unless the stacked
         # batch would be unreasonably large on device
-        from ..ops.gauss_batched import (
-            padded_batch_dims,
-            solve_batched,
-            solve_chained,
-        )
+        from ..ops.gauss_batched import padded_batch_dims, solve_batched
 
         # estimate from the PADDED dims solve_batched will actually allocate
         # (shared helper, so the guard can't drift from the allocation) —
@@ -102,12 +94,8 @@ def solve_batch(
         rows_pad, wp = padded_batch_dims(rows_max, eq_mats[0].shape[1])
         est_bytes = len(eq_mats) * rows_pad * wp * 4
         if est_bytes <= 2 << 30:
-            if mode == 0:
-                # measured at flagship shape: the device-chained scan of the
-                # fused single-system solver beats the batch-vectorized
-                # kernel per solve (~0.072 s vs ~0.107 s, BASELINE.md) with
-                # the identical one-dispatch/one-readback I/O profile
-                return solve_chained(eq_mats, cols)
+            # mode 0: device-chained fused solves; mode 1: lax.map of the
+            # blocked RREF + one batched extraction
             return solve_batched(eq_mats, cols, mode)
         return [solve_blocked(m, cols, mode) for m in eq_mats]
     a = pack_batch(eq_mats, cols)

@@ -1,10 +1,10 @@
 """Multi-host setup: one process per host, devices glued by jax.distributed.
 
 The reference is strictly single-process (SURVEY.md §2: no distribution
-inventory at all); this is the TPU-native layer that extends the row-sharded
-and batched solvers across a pod slice.  XLA compiles the same ``shard_map``
-collectives (pmin/psum in rowshard.py) to ICI within a slice and DCN across
-slices — no hand-written communication layer exists or is needed.
+inventory at all); this is the layer that extends the row-sharded and
+batched solvers across hosts.  XLA compiles the same ``shard_map``
+collectives (pmin/psum in rowshard.py) to the devices' interconnect (NCCL
+on GPUs) — no hand-written communication layer exists or is needed.
 
 Usage (same program on every host):
 
@@ -13,10 +13,9 @@ Usage (same program on every host):
     mesh = meshlib.make_mesh(rows=jax.device_count())   # global devices
     ... solve_rowsharded(eqs, cols, mode, mesh) ...
 
-On a Cloud TPU pod slice ``initialize()`` needs no arguments (JAX infers the
-coordinator from the TPU metadata); elsewhere pass coordinator_address /
-num_processes / process_id explicitly or via GF2BV_TPU_COORD / _NPROC /
-_PROC_ID.
+Pass coordinator_address (``host:port``) / num_processes / process_id
+explicitly or via GF2BV_TPU_COORD / _NPROC / _PROC_ID; without them JAX
+has no cluster to discover and the call fails.
 """
 
 from __future__ import annotations

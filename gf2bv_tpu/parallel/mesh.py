@@ -1,13 +1,13 @@
 """Device-mesh helpers for the batched and row-sharded solvers.
 
 The reference is single-process (SURVEY.md §2: no distribution layer at
-all); this module introduces the TPU-native one: ``jax.sharding.Mesh`` +
-``NamedSharding``, letting XLA place collectives on ICI.  Axis names:
+all); this module introduces one: ``jax.sharding.Mesh`` +
+``NamedSharding``, letting XLA place the collectives.  Axis names:
 
 * ``"batch"`` — independent systems (data-parallel analog; the per-guess
   NLFSR subsystem pattern, ``/root/reference/examples/nlfsr_ex.py:78-86``)
 * ``"rows"``  — block row-sharding of one huge system (tensor/sequence
-  parallel analog; pivot argmax + pivot-row broadcast ride ICI)
+  parallel analog; pivot argmax + pivot-row broadcast are collectives)
 """
 
 from __future__ import annotations

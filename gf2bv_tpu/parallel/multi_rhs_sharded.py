@@ -6,8 +6,7 @@ thousands of appended per-instance affine columns; this module scales the
 INSTANCE axis across a device mesh.  The coefficient matrix is replicated
 and each device eliminates ``[A | its own slice of RHS tiles]`` —
 recomputing the elimination per device is the right trade here because it
-is already amortized over that device's thousands of instances
-(119k recoveries/s/chip at B=32768, BASELINE.md round 5), and the
+is already amortized over that device's thousands of instances, and the
 alternative (row-sharding one elimination) spends per-panel collectives
 to save work that costs less than the wire time.  Scaling is linear in
 devices by construction: there are no collectives at all (verified by the
@@ -34,35 +33,29 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ..core import packing
 from ..core.affine import AffineSpace
 from ..ops import multi_rhs
-from ..ops.gauss_blocked import K_PANEL, _pick_engines
+from ..ops.gauss_blocked import K_PANEL
 from . import mesh as meshlib
 from .mesh import _mesh_key
-
-try:  # JAX >= 0.8 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 _kernel_cache: dict = {}
 _CACHE_MAX = 8
 
 
-def _build(mesh, cols: int, wp: int, bw_d: int, k_panel: int,
-           phase1: str, phase2: str):
+def _build(mesh, cols: int, wp: int, bw_d: int, k_panel: int):
     """Compiled shard_map solver for one (mesh, shape) combination."""
 
     def local(a_loc, rhs_loc):
         # one shared augment/eliminate/extract implementation with the
         # single-device path (tile padding, engine plumbing, extraction)
         rref32, pof, origins32, unsat_words = multi_rhs.solve_multi_rhs_device(
-            a_loc, cols, rhs_loc, bw_d, k_panel, phase1, phase2
+            a_loc, cols, rhs_loc, bw_d, k_panel
         )
         # the coefficient RREF and pivot map are device-invariant (the
         # appended block never influences pivoting), so returning them
         # with a replicated out_spec is exact, not an approximation
         return origins32, unsat_words, rref32[:, :wp], pof
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(), P(None, meshlib.BATCH_AXIS)),
@@ -120,8 +113,6 @@ def solve_multi_rhs_sharded(
     mode: int = 0,
     mesh=None,
     k_panel: int | None = None,
-    phase1: str | None = None,
-    phase2: str | None = None,
     basis_cache: dict | None = None,
     rhs_packed: np.ndarray | None = None,
     nb: int | None = None,
@@ -174,15 +165,10 @@ def solve_multi_rhs_sharded(
         )
 
     k_panel = k_panel or K_PANEL
-    auto1, auto2 = _pick_engines(wp + multi_rhs._tiles_for(bw_d) * 128)
-    phase1 = phase1 or auto1
-    phase2 = phase2 or auto2
-
-    key = (_mesh_key(mesh), cols, rows_pad, wp, bw_d, k_panel,
-           phase1, phase2)
+    key = (_mesh_key(mesh), cols, rows_pad, wp, bw_d, k_panel)
     fn = _kernel_cache.get(key)
     if fn is None:
-        fn = _build(mesh, cols, wp, bw_d, k_panel, phase1, phase2)
+        fn = _build(mesh, cols, wp, bw_d, k_panel)
         while len(_kernel_cache) >= _CACHE_MAX:
             _kernel_cache.pop(next(iter(_kernel_cache)))
         _kernel_cache[key] = fn

@@ -8,7 +8,7 @@ The multi-chip analog of M4RI's single-core PLUQ: the packed matrix is
 block-sharded by rows over the ``rows`` mesh axis with ``shard_map``; each
 pivot step does a local candidate argmax, a global winner election
 (``lax.pmin`` on global row index), and a pivot-row broadcast (``lax.psum``
-of a one-hot contribution) — both collectives compile to ICI ops.  The
+of a one-hot contribution) — both compile to device collectives.  The
 elimination XOR is purely local.  This is the structural pattern SURVEY.md §5
 maps from ring/context parallelism: shard one long axis, rotate/broadcast a
 small working set.
@@ -30,11 +30,6 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ..core import packing
 from . import mesh as meshlib
 from .mesh import _mesh_key
-
-try:  # JAX >= 0.8 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 _BIG = np.int32(2**30)
 _kernel_cache: dict = {}
@@ -78,7 +73,7 @@ def _build(mesh, cols: int):
         a, used, pof = lax.fori_loop(0, cols, step, (a, used0, pof0))
         return a, pof
 
-    fn = shard_map(
+    fn = jax.shard_map(
         kernel,
         mesh=mesh,
         in_specs=P(meshlib.ROWS_AXIS, None),

@@ -14,7 +14,7 @@ the panel-blocked algorithm (ops/gauss_blocked.py): per K-column panel,
   phase 2 (bulk): the rank-K update of the local row block is entirely
     local — ``selector_from_prow``'s ``owned``/``local_idx`` parameters mask
     the diagonal flip to the shard that owns each pivot row.  No bulk data
-    ever crosses ICI; per-column communication is O(wp) words instead of the
+    ever crosses the interconnect; per-column communication is O(wp) words instead of the
     naive O(rows·wp).
 
 Same RREF/pof contract as gauss_blocked.rref_blocked, with ``pof`` holding
@@ -40,16 +40,11 @@ from ..ops.gauss_blocked import apply_rank_k_update, selector_from_prow
 from . import mesh as meshlib
 from .mesh import _mesh_key
 
-try:  # JAX >= 0.8 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
 _BIG = np.int32(2**30)
 _kernel_cache: dict = {}
 
 
-def _build(mesh, cols: int, k_panel: int, phase2: str):
+def _build(mesh, cols: int, k_panel: int):
     K = k_panel
     kw = K // 32
 
@@ -96,7 +91,7 @@ def _build(mesh, cols: int, k_panel: int, phase2: str):
                 lwin = jnp.where(i_own, winner - offset, 0)
 
                 # owner reconstructs the full-width forward pivot row and
-                # broadcasts it (psum of a one-hot contribution over ICI)
+                # broadcasts it (psum of a one-hot contribution)
                 arow = lax.dynamic_index_in_dim(a, lwin, axis=0, keepdims=False)
                 crow = lax.dynamic_index_in_dim(cmat, lwin, axis=0, keepdims=False)
                 full = arow ^ xor_select(pf, crow)
@@ -152,13 +147,13 @@ def _build(mesh, cols: int, k_panel: int, phase2: str):
 
             # rank-K bulk update of the local block — all-local
             s = selector_from_prow(b_orig, prow_g, owned=owned, local_idx=lidx_arr)
-            a = apply_rank_k_update(a, s, pf, phase2)
+            a = apply_rank_k_update(a, s, pf)
             return a, used, pof
 
         a, used, pof = lax.fori_loop(0, panels, panel_body, (a, used0, pof0))
         return a, pof[:cols]
 
-    fn = shard_map(
+    fn = jax.shard_map(
         kernel,
         mesh=mesh,
         in_specs=P(meshlib.ROWS_AXIS, None),
@@ -168,30 +163,16 @@ def _build(mesh, cols: int, k_panel: int, phase2: str):
     return jax.jit(fn)
 
 
-def rref_rowsharded_blocked(
-    a32: np.ndarray, cols: int, mesh, k_panel: int = 256, phase2: str = "jnp"
-):
+def rref_rowsharded_blocked(a32: np.ndarray, cols: int, mesh, k_panel: int = 256):
     """Sharded blocked RREF.  a32: (rows, W32) u32; rows % rows-axis == 0 and
     W32 % (k_panel//32) == 0 are the caller's responsibility (see solve)."""
-    key = (_mesh_key(mesh), cols, k_panel, phase2)
+    key = (_mesh_key(mesh), cols, k_panel)
     fn = _kernel_cache.get(key)
     if fn is None:
-        fn = _kernel_cache[key] = _build(mesh, cols, k_panel, phase2)
+        fn = _kernel_cache[key] = _build(mesh, cols, k_panel)
     sharding = NamedSharding(mesh, P(meshlib.ROWS_AXIS, None))
     a = jax.device_put(a32, sharding)
     return fn(a)
-
-
-def _pick_phase2(wp: int) -> str:
-    """MXU kernel inside shard_map when on TPU with lane-aligned width
-    (measured 9x faster than the jnp xor-reduce at 2048 cols)."""
-    import os
-
-    if "GF2BV_TPU_PHASE2" in os.environ:
-        return os.environ["GF2BV_TPU_PHASE2"]
-    if wp % 128 == 0 and jax.default_backend() == "tpu":
-        return "mxu"
-    return "jnp"
 
 
 def solve_rowsharded_blocked(
@@ -200,23 +181,15 @@ def solve_rowsharded_blocked(
     mode: int,
     mesh,
     k_panel: int = 256,
-    phase2: str | None = None,
 ):
     """Drop-in replacement for rowshard.solve_rowsharded (same contract),
     using the panel-blocked kernel."""
     from ..ops import extract_device
 
     naxis = mesh.shape[meshlib.ROWS_AXIS]
-    kw = k_panel // 32
-    if jax.default_backend() == "tpu":
-        # mxu tiling wants lane-aligned width and 256-row local blocks
-        word_align, row_align = 128 if (128 % kw == 0) else kw * 128, 256 * naxis
-    else:
-        word_align, row_align = kw, naxis
     a32 = packing.pad2d(
-        packing.to_u32(eqs), row_align=row_align, word_align=max(kw, word_align)
+        packing.to_u32(eqs), row_align=naxis, word_align=k_panel // 32
     )
-    phase2 = phase2 or _pick_phase2(a32.shape[1])
-    rref32, pof = rref_rowsharded_blocked(a32, cols, mesh, k_panel, phase2)
+    rref32, pof = rref_rowsharded_blocked(a32, cols, mesh, k_panel)
     inconsistent = extract_device.inconsistent_device(rref32)
     return extract_device.finalize(rref32, pof, inconsistent, cols, mode)

@@ -5,12 +5,12 @@ latency-bound collectives per PIVOT (pmin election + psum row broadcast) —
 ~2K collective rounds per panel dominate a pod-scale solve.  This module
 reduces communication to one ``all_gather`` per PANEL:
 
-1. every shard runs the panel phase-1 SCAN on its local row block
-   (ops/pallas_phase1 scan kernel — a pure-local kernel), electing up to
-   K local rows whose strip span covers the shard's panel columns;
+1. every shard runs the panel phase 1 (gauss_blocked.phase1_panel) on
+   its local row block — purely local — electing up to K local rows whose
+   strip span covers the shard's panel columns;
 2. the K elected rows are all-gathered RAW — un-eliminated, straight out
    of the local block (K·wp words, one round);
-3. every shard runs the full phase-1 kernel on the replicated (N·K, wp)
+3. every shard runs the same phase 1 on the replicated (N·K, wp)
    stacked rows, yielding the merged panel pivot rows;
 4. the rank-K bulk update is entirely local, exactly as in
    rowshard_blocked.
@@ -48,37 +48,25 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..core import packing
 from ..ops.gauss_blocked import (
+    _ROW_BUCKET,
     apply_rank_k_update,
     origin_parity_unsat,
+    phase1_panel,
     selector_from_prow,
 )
 from . import mesh as meshlib
 from .mesh import _mesh_key
 
-try:  # JAX >= 0.8 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
 _kernel_cache: dict = {}
 
 
-def _build(
-    mesh,
-    cols: int,
-    k_panel: int,
-    phase2: str,
-    interpret: bool,
-    fused_origin: bool = False,
-):
-    from ..ops.pallas_phase1 import phase1_panel_split, phase1_scan_subset
-
+def _build(mesh, cols: int, k_panel: int, fused_origin: bool = False):
     K = k_panel
     kw = K // 32
     naxis = mesh.shape[meshlib.ROWS_AXIS]
 
     def kernel(a_in):
-        """a_in: (rloc, wp) local row block; wp % 128 == 0 (kernel tiling)."""
+        """a_in: (rloc, wp) local row block; wp % (k_panel//32) == 0."""
         rloc, wp = a_in.shape
         panels = wp // kw
         ax = lax.axis_index(meshlib.ROWS_AXIS).astype(jnp.int32)
@@ -92,14 +80,12 @@ def _build(
             w0 = t * kw
             b_orig = lax.dynamic_slice(a, (0, w0), (rloc, kw))
 
-            # 1) local phase 1 SCAN only: elect up to K local rows spanning
-            # the shard's panel-strip space (no local reconstruction — the
-            # merged stage below does ALL reduction; see module docstring
-            # for why the RAW rows must be the ones gathered)
-            prow_l, _ = phase1_scan_subset(
-                b_orig.T, used.astype(jnp.int32)[None, :], w0, K, cols,
-                interpret,
-            )
+            # 1) local phase 1: elect up to K local rows spanning the
+            # shard's panel-strip space.  Only the election is used (its
+            # local pivot rows are dead code to XLA) — the merged stage
+            # below does ALL reduction; see module docstring for why the
+            # RAW rows must be the ones gathered
+            _, prow_l, _ = phase1_panel(a, b_orig, used, w0, K, cols)
             valid_l = prow_l >= 0
             raw_l = jnp.where(
                 valid_l[:, None], a[jnp.maximum(prow_l, 0)], jnp.uint32(0)
@@ -117,9 +103,8 @@ def _build(
 
             # 3) merged phase 1 on the replicated stacked candidates
             sb = lax.dynamic_slice(stacked, (0, w0), (naxis * K, kw))
-            s_used = (grow < 0).astype(jnp.int32)[None, :]  # invalid = used
-            pf, prow_s, _ = phase1_panel_split(
-                stacked, sb.T, s_used, w0, K, cols, interpret=interpret
+            pf, prow_s, _ = phase1_panel(
+                stacked, sb, grow < 0, w0, K, cols  # invalid = used
             )
 
             # map merged pivots (stacked indices) back to global/local rows
@@ -136,11 +121,9 @@ def _build(
             pof = pof.at[dst].set(gpiv)
 
             # 4) rank-K bulk update — entirely local; mode-0 fused solves
-            # use the trailing MXU skip (the single-chip fast path)
+            # use the trailing skip (the single-chip fast path)
             s = selector_from_prow(b_orig, gpiv, owned=owned, local_idx=local_idx)
-            a = apply_rank_k_update(
-                a, s, pf, phase2, w0=w0 if fused_origin else None
-            )
+            a = apply_rank_k_update(a, s, pf, w0 if fused_origin else None)
             return a, used, pof
 
         a, used, pof = lax.fori_loop(0, panels, panel_body, (a_in, used0, pof0))
@@ -167,7 +150,7 @@ def _build(
         return origin32, unsat
 
     out_specs = (P(), P()) if fused_origin else (P(meshlib.ROWS_AXIS, None), P())
-    fn = shard_map(
+    fn = jax.shard_map(
         kernel,
         mesh=mesh,
         in_specs=P(meshlib.ROWS_AXIS, None),
@@ -182,22 +165,18 @@ def rref_rowsharded_tournament(
     cols: int,
     mesh,
     k_panel: int = 256,
-    phase2: str = "jnp",
-    interpret: bool = False,
     fused_origin: bool = False,
 ):
-    """Sharded tournament RREF; rows % (256 * rows-axis) == 0 and
-    W32 % 128 == 0 are the caller's responsibility (see solve).
+    """Sharded tournament RREF; rows % rows-axis == 0 and
+    W32 % (k_panel//32) == 0 are the caller's responsibility (see solve).
 
     fused_origin=True returns (origin32, unsat) instead of (rref, pof):
     trailing phase-2, in-kernel origin extraction, and a psum'd A·[1|x]
     parity verification — the sharded version of rref_origin_blocked."""
-    key = (_mesh_key(mesh), cols, k_panel, phase2, interpret, fused_origin)
+    key = (_mesh_key(mesh), cols, k_panel, fused_origin)
     fn = _kernel_cache.get(key)
     if fn is None:
-        fn = _kernel_cache[key] = _build(
-            mesh, cols, k_panel, phase2, interpret, fused_origin
-        )
+        fn = _kernel_cache[key] = _build(mesh, cols, k_panel, fused_origin)
     sharding = NamedSharding(mesh, P(meshlib.ROWS_AXIS, None))
     return fn(jax.device_put(a32, sharding))
 
@@ -208,40 +187,28 @@ def solve_rowsharded_tournament(
     mode: int,
     mesh,
     k_panel: int = 256,
-    phase2: str | None = None,
-    interpret: bool | None = None,
 ):
     """Drop-in for rowshard_blocked.solve_rowsharded_blocked with
     one-collective-per-panel communication."""
     from ..ops import extract_device
-    from .rowshard_blocked import _pick_phase2
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     naxis = mesh.shape[meshlib.ROWS_AXIS]
     kw = k_panel // 32
-    # the phase-1 kernels need lane-aligned width and 8-aligned local rows;
-    # pad local blocks to 256 rows like the single-chip solver
-    # width must be a multiple of BOTH kw (panel coverage) and 128 (kernel
-    # lane tiling) — same guard as rowshard_blocked
-    word_align = 128 if 128 % kw == 0 else kw * 128
+    # local blocks padded to the single-chip row bucket and the width to
+    # whole 128-word tiles (a multiple of kw too), so the phase-2 kernel
+    # tiles each shard as it tiles the single-chip matrix
     a32 = packing.pad2d(
         packing.to_u32(eqs),
-        row_align=256 * naxis,
-        word_align=word_align,
+        row_align=_ROW_BUCKET * naxis,
+        word_align=128 if 128 % kw == 0 else kw * 128,
     )
-    phase2 = phase2 or _pick_phase2(a32.shape[1])
     if mode == 0:
         origin32, unsat = jax.device_get(
-            rref_rowsharded_tournament(
-                a32, cols, mesh, k_panel, phase2, interpret, fused_origin=True
-            )
+            rref_rowsharded_tournament(a32, cols, mesh, k_panel, fused_origin=True)
         )
         if bool(unsat):
             return None
         return packing.from_u32(np.asarray(origin32)[None, :])[0]
-    rref32, pof = rref_rowsharded_tournament(
-        a32, cols, mesh, k_panel, phase2, interpret
-    )
+    rref32, pof = rref_rowsharded_tournament(a32, cols, mesh, k_panel)
     inconsistent = extract_device.inconsistent_device(rref32)
     return extract_device.finalize(rref32, pof, inconsistent, cols, mode)

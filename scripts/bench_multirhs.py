@@ -1,4 +1,4 @@
-"""Multi-RHS device-rate sweep across the tile buckets (VERDICT r3 #4).
+"""Multi-RHS device-rate sweep across the tile buckets.
 
 One elimination carries up to MAX_RHS=32768 instances as appended 128-word
 RHS tiles (ops/multi_rhs.py; 8 tiles since round 5).  This measures the

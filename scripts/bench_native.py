@@ -7,7 +7,7 @@ matrix scale ~1/NSUB until table reads (NSUB * 256 * W words, cache-
 resident) stop being free.  The reference pays the equivalent cost inside
 libm4ri's mzd_echelonize_m4ri (/root/reference/gf2bv/_internal.c:359-502).
 
-Pure host benchmark — no TPU needed.  Run: python scripts/bench_native.py
+Pure host benchmark — no accelerator needed.  Run: python scripts/bench_native.py
 """
 
 import ctypes

@@ -11,10 +11,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import os
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
 import time
 
 import numpy as np
@@ -69,15 +65,14 @@ def main():
           f"({a_dev.shape[0] * a_dev.shape[1] * 4 / 1e6:.0f} MB)",
           file=sys.stderr)
 
-    p1, p2 = gauss_blocked._pick_engines(wp)
     t0 = time.perf_counter()
-    o32, unsat = gauss_blocked.rref_origin_blocked(a_dev, COLS, 256, p2, p1)
+    o32, unsat = gauss_blocked.rref_origin_blocked(a_dev, COLS)
     _ = np.asarray(o32[:1])
     print(f"cold solve (incl compile): {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
 
     t0 = time.perf_counter()
-    o32, unsat = gauss_blocked.rref_origin_blocked(a_dev, COLS, 256, p2, p1)
+    o32, unsat = gauss_blocked.rref_origin_blocked(a_dev, COLS)
     o32h, unsath = jax.device_get((o32, unsat))
     dt = time.perf_counter() - t0
     assert not bool(unsath)

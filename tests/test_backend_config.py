@@ -31,12 +31,15 @@ def test_env_backend_override(monkeypatch):
 
 
 def test_phase_engine_env_override(monkeypatch):
+    """The phase-2 engine follows the JAX backend alone: the Triton kernel
+    on a GPU, jnp elsewhere; no environment variable overrides it."""
     from gf2bv_tpu.ops import gauss_blocked
 
-    monkeypatch.setenv("GF2BV_TPU_PHASE1", "jnp")
-    monkeypatch.setenv("GF2BV_TPU_PHASE2", "pallas_interpret")
-    p1, p2 = gauss_blocked._pick_engines(640)
-    assert (p1, p2) == ("jnp", "pallas_interpret")
+    monkeypatch.setenv("GF2BV_TPU_PHASE1", "pallas")
+    monkeypatch.setenv("GF2BV_TPU_PHASE2", "triton")
+    assert gauss_blocked.default_phase2() == "jnp"
+    monkeypatch.setattr(gauss_blocked.jax, "default_backend", lambda: "gpu")
+    assert gauss_blocked.default_phase2() == "triton"
 
 
 def test_unknown_backend_falls_back_to_jax_path():

@@ -1,6 +1,6 @@
 """Capture/bind (re-trace-free solving): a model recorded once with Param
 placeholders must solve every instance bit-identically to a fresh direct
-trace, without re-running the model (VERDICT r2 item 1)."""
+trace, without re-running the model."""
 
 import pickle
 import random

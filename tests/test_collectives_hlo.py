@@ -1,5 +1,5 @@
 """Mechanical verification of the sharded solvers' communication claims
-(VERDICT r2 item 3): compile on the 8-device CPU mesh, dump optimized HLO,
+: compile on the 8-device CPU mesh, dump optimized HLO,
 and count collective instructions.
 
 The enforced invariants:
@@ -74,7 +74,7 @@ def _counts(found):
 
 def test_tournament_one_gather_round_per_panel_no_other_collectives():
     mesh = _mesh8()
-    fn = rt._build(mesh, cols=192, k_panel=64, phase2="jnp", interpret=True)
+    fn = rt._build(mesh, cols=192, k_panel=64)
     found = _collective_lines(_compiled_hlo(fn, mesh))
     counts = _counts(found)
 
@@ -91,10 +91,7 @@ def test_tournament_one_gather_round_per_panel_no_other_collectives():
 
 def test_tournament_fused_origin_adds_only_the_two_tail_reduces():
     mesh = _mesh8()
-    fn = rt._build(
-        mesh, cols=192, k_panel=64, phase2="jnp", interpret=True,
-        fused_origin=True,
-    )
+    fn = rt._build(mesh, cols=192, k_panel=64, fused_origin=True)
     found = _collective_lines(_compiled_hlo(fn, mesh))
     counts = _counts(found)
 
@@ -117,7 +114,7 @@ def test_tournament_fused_origin_adds_only_the_two_tail_reduces():
 
 def test_blocked_two_reduces_per_pivot_no_gathers():
     mesh = _mesh8()
-    fn = rb._build(mesh, cols=192, k_panel=64, phase2="jnp")
+    fn = rb._build(mesh, cols=192, k_panel=64)
     found = _collective_lines(_compiled_hlo(fn, mesh))
     counts = _counts(found)
 
@@ -132,7 +129,7 @@ def test_blocked_two_reduces_per_pivot_no_gathers():
 
 
 # --------------------------------------------------------------------------
-# Communication VOLUME (VERDICT r3 item 5): the count checks above would
+# Communication VOLUME: the count checks above would
 # still pass if a layout regression gathered full local row-blocks instead
 # of the K candidate rows — per-panel wire bytes would silently inflate
 # (rloc/K)x and SCALING.md's latency model would be wrong.  Parse the
@@ -155,7 +152,7 @@ def _result_shape(line):
 def test_tournament_gather_volume_is_candidates_not_rows():
     mesh = _mesh8()
     naxis, K, wp, rows = 8, 64, 128, 2048
-    fn = rt._build(mesh, cols=192, k_panel=K, phase2="jnp", interpret=True)
+    fn = rt._build(mesh, cols=192, k_panel=K)
     found = _collective_lines(_compiled_hlo(fn, mesh, rows=rows, wp=wp))
     gathers = found.get("all-gather", []) + found.get("all-gather-start", [])
     shapes = sorted(_result_shape(line) for _, line in gathers)
@@ -171,7 +168,7 @@ def test_tournament_gather_volume_is_candidates_not_rows():
 def test_blocked_reduce_volume_is_one_row_per_pivot():
     mesh = _mesh8()
     wp = 128
-    fn = rb._build(mesh, cols=192, k_panel=64, phase2="jnp")
+    fn = rb._build(mesh, cols=192, k_panel=64)
     found = _collective_lines(_compiled_hlo(fn, mesh, wp=wp))
     reduces = found.get("all-reduce", []) + found.get("all-reduce-start", [])
     shapes = sorted(_result_shape(line) for _, line in reduces)
@@ -190,7 +187,7 @@ def test_tournament_rounds_independent_of_mesh_size():
         mesh = meshlib.make_mesh(
             batch=1, rows=n, devices=jax.devices()[:n]
         )
-        fn = rt._build(mesh, cols=192, k_panel=64, phase2="jnp", interpret=True)
+        fn = rt._build(mesh, cols=192, k_panel=64)
         found = _collective_lines(_compiled_hlo(fn, mesh))
         counts[n] = len(
             found.get("all-gather", []) + found.get("all-gather-start", [])
@@ -214,9 +211,7 @@ def test_tournament_pivot_ownership_spreads_across_shards():
         packing.to_u32(eqs), row_align=256 * naxis, word_align=128
     )
     _, pof = jax.device_get(
-        rt.rref_rowsharded_tournament(
-            a32, cols, mesh, k_panel=64, phase2="jnp", interpret=True
-        )
+        rt.rref_rowsharded_tournament(a32, cols, mesh, k_panel=64)
     )
     pof = np.asarray(pof)
     owners = pof[pof >= 0] // (a32.shape[0] // naxis)

@@ -1,9 +1,9 @@
 """CPU-only hosts auto-route to the native C engine.
 
 On a box whose JAX is pinned to the host CPU (no accelerator), ``auto``
-backend resolution prefers the native M4R-family engine — the XLA-CPU
-emulation of the TPU kernels is 1-2 orders of magnitude slower there.  The
-suite at large keeps GF2BV_TPU_CPU_NATIVE=0 (conftest) so the TPU code
+backend resolution prefers the native M4R-family engine — XLA's CPU code
+for the device paths is 1-2 orders of magnitude slower there.  The
+suite at large keeps GF2BV_TPU_CPU_NATIVE=0 (conftest) so the device code
 paths stay covered on the virtual mesh; these tests exercise the routing
 knob and the native lazy fast path explicitly.  RREF uniqueness makes every
 backend bit-comparable (the repo-wide test pattern).

@@ -1,6 +1,6 @@
-"""Batched blocked solver (ops/gauss_batched.py) vs the single-system
-solver, interpret mode.  RREF is unique, so every per-instance output must
-be bit-identical."""
+"""Batched blocked solvers (ops/gauss_batched.py) vs the single-system
+solver.  RREF is unique, so every per-instance output must be
+bit-identical."""
 
 import numpy as np
 import pytest
@@ -31,11 +31,9 @@ def test_batched_rref_matches_single():
     mats = _systems(rng, 3, 300, 200)
     a32s = [_pad(m, 256, word_align=128) for m in mats]
     a = jnp.asarray(np.stack(a32s))
-    r_b, pof_b, inc_b = gauss_batched.rref_blocked_batched(
-        a, 200, 256, "jnp", False, True
-    )
+    r_b, pof_b, inc_b = gauss_batched.rref_blocked_batched(a, 200)
     for b, a32 in enumerate(a32s):
-        r1, pof1, inc1 = rref_blocked(jnp.asarray(a32), 200, 256, "jnp", "jnp")
+        r1, pof1, inc1 = rref_blocked(jnp.asarray(a32), 200)
         assert np.array_equal(np.asarray(r_b)[b], np.asarray(r1))
         assert np.array_equal(np.asarray(pof_b)[b], np.asarray(pof1))
         assert bool(np.asarray(inc_b)[b]) == bool(inc1)
@@ -79,9 +77,9 @@ def test_solve_chained_matches_solve_blocked():
 
 def test_solve_batch_routes_wide_mode0_to_chained(monkeypatch):
     """parallel.batch.solve_batch must send mode-0 batches at or above the
-    measured per-pivot crossover through the chained-scan path.  The real
-    constant is 2048 (BASELINE.md round-5 crossover); it is patched down
-    so the routing logic is exercised at a CI-sized shape."""
+    per-pivot crossover through the chained-scan path.  The real constant
+    is 2048; it is patched down so the routing logic is exercised at a
+    CI-sized shape."""
     from gf2bv_tpu.parallel import batch as pbatch
 
     monkeypatch.setattr(pbatch, "_PER_PIVOT_MAX_COLS", 190)
@@ -106,27 +104,20 @@ def test_solve_batch_routes_wide_mode0_to_chained(monkeypatch):
             assert np.array_equal(g, want)
 
 
-@pytest.mark.parametrize("mode", [0, 1])
-def test_solve_batched_chunks_past_vmem_max(monkeypatch, mode):
-    """Batches above VMEM_BATCH_MAX split into multiple device programs
-    (the batch-vectorized kernels fail to COMPILE past ~64 instances —
-    scoped-VMEM limit, BASELINE.md round-5 crossover); the tail chunk is
-    zero-padded for executable reuse and sliced before extraction.  The
-    cap is patched down so the chunk loop runs at CI size."""
-    monkeypatch.setattr(gauss_batched, "VMEM_BATCH_MAX", 4)
-    rng = np.random.default_rng(41)
-    mats = _systems(rng, 5, 200, 120, with_unsat=True)  # 6 systems: 4 + 2
-    got = gauss_batched.solve_batched(mats, 120, mode)
+@pytest.mark.parametrize("nb,rows,cols", [(1, 200, 120), (6, 200, 120), (3, 330, 300)])
+def test_lax_map_mode1_matches_single(nb, rows, cols):
+    """Mode-1 batches run as a lax.map of the single-system RREF plus one
+    batched extraction: every (origin, basis) equals its single solve, and
+    the planted contradiction comes back None."""
+    rng = np.random.default_rng(41 + nb + cols)
+    mats = _systems(rng, nb, rows, cols, with_unsat=True)
+    got = gauss_batched.solve_batched(mats, cols, 1)
     assert len(got) == len(mats)
-    saw_unsat = False
+    assert got[-1] is None
     for g, m in zip(got, mats):
-        want = solve_blocked(m, 120, mode)
+        want = solve_blocked(m, cols, 1)
         if want is None:
             assert g is None
-            saw_unsat = True
-        elif mode == 0:
-            assert np.array_equal(g, want)
         else:
             assert np.array_equal(g[0], want[0])
             assert np.array_equal(g[1], want[1])
-    assert saw_unsat

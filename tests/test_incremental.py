@@ -45,7 +45,7 @@ def _dense_state(inc):
 def _fresh_state(lin, all_zeros, cols):
     eqs = lin.get_eqs_packed(all_zeros)
     a32 = _pad(eqs, 128, word_align=128)
-    rref, pof, bad = rref_blocked(jnp.asarray(a32), cols, 128, "jnp", "jnp")
+    rref, pof, bad = rref_blocked(jnp.asarray(a32), cols, 128)
     m = np.asarray(rref)
     rows = m[m.any(axis=1)]
     order = np.lexsort(rows.T[::-1])
@@ -77,7 +77,7 @@ def test_incremental_matches_fresh_elimination(w):
     gm, wm = np.asarray(inc._M), None
     eqs = lin.get_eqs_packed(zeros)
     a32 = _pad(eqs, 128, word_align=128)
-    wm = np.asarray(rref_blocked(jnp.asarray(a32), w, 128, "jnp", "jnp")[0])
+    wm = np.asarray(rref_blocked(jnp.asarray(a32), w, 128)[0])
     for c in np.nonzero(want_pof >= 0)[0]:
         g = gm[got_pof[c]][: wm.shape[1]]
         assert np.array_equal(g, wm[want_pof[c]][: g.shape[0]])

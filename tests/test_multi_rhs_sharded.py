@@ -93,7 +93,7 @@ def test_sharded_solver_emits_no_collectives():
     _, a32 = _structure(rng)
     rows_pad, wp = a32.shape
     bw_d = 1
-    fn = mrs._build(mesh, COLS, wp, bw_d, 256, "jnp", "jnp")
+    fn = mrs._build(mesh, COLS, wp, bw_d, 256)
     import jax.numpy as jnp
 
     rhs = jnp.zeros((rows_pad, mesh.shape[meshlib.BATCH_AXIS] * bw_d),

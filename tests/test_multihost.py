@@ -1,6 +1,6 @@
 """True multi-process validation: 2 jax.distributed processes x 4 virtual
 CPU devices each solve one row-sharded system over 8 global devices with
-Gloo collectives (the CPU stand-in for ICI/DCN; SURVEY.md §4 multi-host
+Gloo collectives (the CPU stand-in for NCCL; SURVEY.md §4 multi-host
 strategy).  Subprocess-based because jax.distributed is per-process."""
 
 import pathlib

@@ -1,12 +1,26 @@
-"""Pallas panel-update kernel vs the jnp reference formulation (interpret
-mode on CPU; the compiled path runs in bench.py on real TPU)."""
+"""Phase-2 rank-K update engines and the solver levels above them.
+
+The Triton kernel (ops/triton_update.py) runs here in Pallas interpret
+mode against the jnp formulation and a plain numpy reference; the solver-
+level cases run the blocked solver against the oracle (RREF is unique, so
+origins and bases must agree bit for bit).  The compiled kernel runs on
+the GPU in chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from gf2bv_tpu.ops.pallas_update import panel_update
+from gf2bv_tpu.core import packing
+from gf2bv_tpu.ops import gauss_blocked, triton_update
+from gf2bv_tpu.ops.gauss_blocked import rank_k_update_jnp, solve_blocked
+from gf2bv_tpu.ops.gauss_ref import solve_oracle
+from gf2bv_tpu.ops.triton_update import rank_k_update_triton
+
+from test_solver import random_system
 
 
 def ref_update(a, sel, pf):
@@ -23,255 +37,192 @@ def ref_update(a, sel, pf):
     return out
 
 
+def _operands(seed, rows, wp, k):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
+    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
+    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
+    return a, sel, pf
+
+
+@pytest.fixture
+def triton_interpret(monkeypatch):
+    """Route the solver's Triton engine through Pallas interpret mode."""
+    monkeypatch.setattr(
+        triton_update,
+        "rank_k_update_triton",
+        functools.partial(rank_k_update_triton, interpret=True),
+    )
+
+
 @pytest.mark.parametrize("rows,wp,k", [(256, 128, 128), (512, 256, 64)])
 def test_panel_update_interpret(rows, wp, k):
-    rng = np.random.default_rng(rows + wp + k)
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
+    a, sel, pf = _operands(rows + wp + k, rows, wp, k)
     got = np.asarray(
-        panel_update(jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf), interpret=True)
-    )
-    want = ref_update(a, sel, pf)
-    assert np.array_equal(got, want)
-
-
-def test_blocked_solver_with_pallas_phase2():
-    import sys
-
-    sys.path.insert(0, "tests")
-    from test_solver import random_system
-
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-
-    rng = np.random.default_rng(3)
-    eqs, _ = random_system(rng, 80, 70, rank_deficit=4)
-    ref = solve_oracle(eqs, 70)
-    got = solve_blocked(eqs, 70, 1, phase2="pallas_interpret")
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert packing.rows_to_ints(basis) == packing.rows_to_ints(ref.basis)
-
-
-def test_blocked_solver_with_pallas_phase1_interpret():
-    import sys
-
-    sys.path.insert(0, "tests")
-    from test_solver import random_system
-
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-
-    rng = np.random.default_rng(7)
-    eqs, _ = random_system(rng, 90, 75, rank_deficit=5)
-    ref = solve_oracle(eqs, 75)
-    got = solve_blocked(eqs, 75, 1, phase1="pallas_interpret", phase2="jnp")
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert packing.rows_to_ints(basis) == packing.rows_to_ints(ref.basis)
-
-
-def test_mxu_panel_update_interpret():
-    from gf2bv_tpu.ops.pallas_update import panel_update_mxu
-
-    rng = np.random.default_rng(12)
-    rows, wp, k = 256, 128, 128
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    got = np.asarray(
-        panel_update_mxu(
+        rank_k_update_triton(
             jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf), interpret=True
         )
     )
-    want = ref_update(a, sel, pf)
-    assert np.array_equal(got, want)
+    assert np.array_equal(got, ref_update(a, sel, pf))
 
 
-def test_mxu_panel_update_trailing_interpret():
-    """Trailing mode: tiles fully left of w0 (except tile 0) pass through
-    untouched; tile 0 and tiles overlapping/right of w0 get the update."""
-    from gf2bv_tpu.ops.pallas_update import panel_update_mxu
-
-    rng = np.random.default_rng(13)
-    rows, wp, k = 256, 384, 64  # three 128-word tiles
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    w0 = 260  # tile 1 ([128, 256)) is skippable, tile 2 contains w0
+@pytest.mark.parametrize("rows,wp,k", [(64, 8, 64), (256, 128, 256)])
+def test_jnp_update_matches_reference(rows, wp, k):
+    a, sel, pf = _operands(rows * k, rows, wp, k)
     got = np.asarray(
-        panel_update_mxu(
-            jnp.asarray(a),
-            jnp.asarray(sel),
-            jnp.asarray(pf),
+        rank_k_update_jnp(jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf))
+    )
+    assert np.array_equal(got, ref_update(a, sel, pf))
+
+
+@pytest.mark.parametrize("w0_tiles", [0.5, 2.25, 4])
+def test_triton_update_trailing_interpret(w0_tiles):
+    """Trailing mode: column tiles wholly left of w0 keep their contents,
+    except the first tile (the const word 0), which is updated like every
+    tile at or right of the panel."""
+    tw = triton_update.TW
+    a, sel, pf = _operands(13, 2 * triton_update.TR, 6 * tw, 64)
+    full = np.asarray(
+        rank_k_update_jnp(jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf))
+    )
+    w0 = int(w0_tiles * tw)
+    got = np.asarray(
+        rank_k_update_triton(
+            jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf), jnp.int32(w0),
             interpret=True,
-            w0=w0,
         )
     )
-    full = ref_update(a, sel, pf)
-    # tile 0 is past the panel: only the const word (word 0) is updated
-    assert np.array_equal(got[:, :1], full[:, :1])
-    assert np.array_equal(got[:, 1:128], a[:, 1:128])
-    assert np.array_equal(got[:, 128:256], a[:, 128:256])  # tile 1: skipped
-    assert np.array_equal(got[:, 256:], full[:, 256:])  # tile 2: updated
+    live = max(w0 // tw * tw, tw)  # first word of the first live tile past 0
+    assert np.array_equal(got[:, :tw], full[:, :tw])  # tile 0: updated
+    assert np.array_equal(got[:, tw:live], a[:, tw:live])  # dead: skipped
+    assert np.array_equal(got[:, live:], full[:, live:])  # live
 
-    # with the panel still inside tile 0 (w0 < 128), tile 0 updates fully
-    got2 = np.asarray(
-        panel_update_mxu(
-            jnp.asarray(a),
-            jnp.asarray(sel),
-            jnp.asarray(pf),
-            interpret=True,
-            w0=64,
+
+@pytest.mark.parametrize(
+    "shape,fits",
+    [
+        ((20224, 640), True),
+        ((256, 8), False),
+        ((triton_update.TR * 3 // 2, triton_update.TW), False),
+    ],
+)
+def test_triton_tiling_predicate(shape, fits):
+    assert triton_update.tiles(shape) == fits
+
+
+def test_engine_choice(monkeypatch):
+    """default_phase2 is the jnp engine off the GPU; an explicit "triton"
+    request takes the kernel only on shapes it tiles; unknown names raise."""
+    assert jax.default_backend() == "cpu"
+    assert gauss_blocked.default_phase2() == "jnp"
+    calls = []
+
+    def spy(a, s, pf, w0=None):
+        calls.append(a.shape)
+        return rank_k_update_triton(a, s, pf, w0, interpret=True)
+
+    monkeypatch.setattr(triton_update, "rank_k_update_triton", spy)
+    a, sel, pf = _operands(3, 64, 128, 64)
+    want = ref_update(a, sel, pf)
+    for shape_a, engine, n_calls in (
+        (a, "jnp", 0), (a, "triton", 1), (a[: triton_update.TR // 2], "triton", 1),
+    ):
+        got = gauss_blocked.apply_rank_k_update(
+            jnp.asarray(shape_a), jnp.asarray(sel[: len(shape_a)]),
+            jnp.asarray(pf), phase2=engine,
         )
-    )
-    assert np.array_equal(got2, full)
+        assert np.array_equal(np.asarray(got), want[: len(shape_a)])
+        assert len(calls) == n_calls
+    with pytest.raises(ValueError):
+        gauss_blocked.apply_rank_k_update(
+            jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf), phase2="mxu"
+        )
 
 
-def test_blocked_solver_with_pallas_scan_phase1_interpret():
-    """Split scan+reconstruct phase-1 engine must match the oracle."""
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
-    rng = np.random.default_rng(21)
-    cols = 75
-    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-    coeff = rng.integers(0, 2, size=(150, cols)).astype(np.uint8)
-    coeff[140:] = coeff[:10]  # some dependent rows
-    rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
-
-    got = solve_blocked(eqs, cols, 1, phase1="pallas_scan_interpret", phase2="jnp")
-    ref = solve_oracle(eqs, cols)
-    origin, basis = got
-    # canonical RREF: compare origin and basis exactly
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
-
-
-@pytest.mark.parametrize("seed,rows,cols", [(41, 150, 75), (42, 300, 200)])
-def test_blocked_solver_with_pallas_scan2_phase1_interpret(seed, rows, cols):
-    """Two-pivots-per-step scan engine must match the oracle bit-for-bit."""
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
-    rng = np.random.default_rng(seed)
-    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-    coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
-    coeff[rows - 5 :] = coeff[:5]  # dependent rows
-    rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
-
-    got = solve_blocked(eqs, cols, 1, phase1="pallas_scan2_interpret", phase2="jnp")
-    ref = solve_oracle(eqs, cols)
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
-
-
-@pytest.mark.parametrize("seed,rows,cols", [(51, 150, 75), (52, 300, 200)])
-def test_blocked_solver_with_pallas_scanm_phase1_interpret(seed, rows, cols):
-    """Fused min-key scan engine (election+extract in one reduction level)
-    must match the oracle bit-for-bit — same pivot choice, same RREF."""
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
-    rng = np.random.default_rng(seed)
-    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-    coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
-    coeff[rows - 5 :] = coeff[:5]  # dependent rows
-    rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
-
-    got = solve_blocked(eqs, cols, 1, phase1="pallas_scanm_interpret", phase2="jnp")
-    ref = solve_oracle(eqs, cols)
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
-
-
-@pytest.mark.parametrize("seed,rows,cols,dep", [(31, 150, 75, 10), (32, 300, 200, 0)])
-def test_blocked_solver_with_pallas_sub_phase1_interpret(seed, rows, cols, dep):
-    """Subset-scan phase-1 engine (with deficit fallback) vs the oracle."""
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
+def _planted(seed, rows, cols, dep):
+    """Consistent random system whose last ``dep`` rows repeat the first."""
     rng = np.random.default_rng(seed)
     secret = rng.integers(0, 2, size=cols).astype(np.uint8)
     coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
     if dep:
         coeff[rows - dep :] = coeff[:dep]
     rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
-
-    got = solve_blocked(eqs, cols, 1, phase1="pallas_sub_interpret", phase2="jnp")
-    ref = solve_oracle(eqs, cols)
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
+    return packing.pack_bits(np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols)
 
 
-def test_blocked_solver_pallas_sub_deficit_fallback_interpret():
-    """Force the subset to miss pivots: > SUBSET_ROWS rows where the first
-    SUBSET_ROWS rows are zero in some columns that later rows cover."""
-    from gf2bv_tpu.ops import pallas_phase1
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
-    S = pallas_phase1.SUBSET_ROWS
+def _deficit_shape():
+    """More rows than one scan window where the first rows only touch the
+    first 8 columns and the tail rows carry the rest: the late columns'
+    pivots sit far down the matrix."""
     rng = np.random.default_rng(99)
-    cols = 40
-    rows = S + 64
+    cols, head = 40, 768 + 32
+    rows = head + 32
     secret = rng.integers(0, 2, size=cols).astype(np.uint8)
     coeff = np.zeros((rows, cols), dtype=np.uint8)
-    # first S+ rows only touch the first 8 columns; the tail rows carry the
-    # rest -> the subset scan cannot pivot columns 8.. until fallback
-    coeff[: S + 32, :8] = rng.integers(0, 2, size=(S + 32, 8))
-    coeff[S + 32 :, :] = rng.integers(0, 2, size=(32, cols))
+    coeff[:head, :8] = rng.integers(0, 2, size=(head, 8))
+    coeff[head:, :] = rng.integers(0, 2, size=(32, cols))
     rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
+    return packing.pack_bits(np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols)
 
-    got = solve_blocked(eqs, cols, 1, phase1="pallas_sub_interpret", phase2="jnp")
+
+_SOLVER_CASES = {
+    "rank_deficit_80x70": lambda: random_system(
+        np.random.default_rng(3), 80, 70, rank_deficit=4)[0],
+    "rank_deficit_90x75": lambda: random_system(
+        np.random.default_rng(7), 90, 75, rank_deficit=5)[0],
+    "dup10_150x75": lambda: _planted(21, 150, 75, 10),
+    "dup5_150x75": lambda: _planted(41, 150, 75, 5),
+    "dup5_300x200": lambda: _planted(42, 300, 200, 5),
+    "dup5_150x75_b": lambda: _planted(51, 150, 75, 5),
+    "dup5_300x200_b": lambda: _planted(52, 300, 200, 5),
+    "dup10_150x75_b": lambda: _planted(31, 150, 75, 10),
+    "full_300x200": lambda: _planted(32, 300, 200, 0),
+    "deficit_fallback_832x40": _deficit_shape,
+    "full_150x75": lambda: _planted(45, 150, 75, 0),
+    "dup6_300x200": lambda: _planted(61, 300, 200, 6),
+    "rank_deficit_100x80": lambda: random_system(
+        np.random.default_rng(62), 100, 80, rank_deficit=3)[0],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SOLVER_CASES))
+def test_blocked_solver_jnp_vs_oracle(case):
+    eqs = _SOLVER_CASES[case]()
+    cols = int(case.split("x")[-1].split("_")[0])
     ref = solve_oracle(eqs, cols)
-    origin, basis = got
+    origin, basis = solve_blocked(eqs, cols, 1, phase2="jnp")
     assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
+    assert packing.rows_to_ints(basis) == packing.rows_to_ints(ref.basis)
 
 
-def test_trailing_solve_e2e_interpret():
-    """End-to-end mode-0 solve through rref_origin_blocked with the trailing
-    MXU kernel actually SKIPPING tiles (needs > 2 tiles of width), checked
-    against the oracle; plus the unsat verdict through the verification."""
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops import gauss_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
+@pytest.mark.parametrize("seed,rows,cols", [(5, 40, 30), (6, 300, 200), (7, 96, 250)])
+def test_phase1_panel_vs_oracle(seed, rows, cols):
+    """One panel covering every column: phase 1's pivot rows are the whole
+    RREF, so its nonzero rows (in panel-column order) are the oracle's."""
+    from gf2bv_tpu.ops.gauss_ref import rref_packed
 
-    import jax.numpy as jnp
+    eqs, _ = random_system(np.random.default_rng(seed), rows, cols, rank_deficit=3)
+    a32 = gauss_blocked._pad(eqs, 256)
+    assert a32.shape[1] == 8  # one 256-bit panel
+    a = jnp.asarray(a32)
+    pf, prow, used = gauss_blocked.phase1_panel(
+        a, a, jnp.zeros((a32.shape[0],), bool), 0, 256, cols
+    )
+    pf, prow, used = map(np.asarray, (pf, prow, used))
+    rref, pivots = rref_packed(eqs, 1 + cols)
+    want = packing.to_u32(rref[: len(pivots)])
+    got = pf[prow >= 0][:, : want.shape[1]]
+    assert np.array_equal(got, want)
+    assert np.flatnonzero(prow >= 0).tolist() == pivots  # bit j = column j
+    assert sorted(np.flatnonzero(used).tolist()) == sorted(prow[prow >= 0].tolist())
 
-    cols = 12300  # wp pads to 512 words -> later panels skip tiles 1..2
+
+@pytest.mark.parametrize("engine", ["jnp", "triton"])
+def test_trailing_solve_e2e_interpret(engine, triton_interpret):
+    """End-to-end mode-0 solve through rref_origin_blocked at a width where
+    the trailing kernel skips tiles, against the oracle; plus the unsat
+    verdict through the parity verification."""
+    cols = 12300  # wp pads to 512 words -> later panels skip dead tiles
     rows = 320
     rng = np.random.default_rng(3)
     secret = rng.integers(0, 2, size=cols).astype(np.uint8)
@@ -282,253 +233,26 @@ def test_trailing_solve_e2e_interpret():
 
     a32 = gauss_blocked._pad(eqs, 256, word_align=128)
     origin32, unsat = gauss_blocked.rref_origin_blocked(
-        jnp.asarray(a32), cols, 256, "mxu_interpret", "jnp"
+        jnp.asarray(a32), cols, 256, engine
     )
     assert not bool(unsat)
-    ref = solve_oracle(eqs, cols)
-    got = packing.words_to_int(
-        packing.from_u32(np.asarray(origin32)[None, :])[0]
-    )
+    ref = solve_oracle(eqs, cols, mode=0)
+    got = packing.words_to_int(packing.from_u32(np.asarray(origin32)[None, :])[0])
     assert got == packing.words_to_int(ref.origin)
 
     # unsat variant: duplicate a row with flipped RHS
     bits2 = bits.copy()
     bits2[-1] = bits2[0]
     bits2[-1, 0] ^= 1
-    eqs2 = packing.pack_bits(bits2, 1 + cols)
-    a32 = gauss_blocked._pad(eqs2, 256, word_align=128)
-    _, unsat2 = gauss_blocked.rref_origin_blocked(
-        jnp.asarray(a32), cols, 256, "mxu_interpret", "jnp"
-    )
+    a32 = gauss_blocked._pad(packing.pack_bits(bits2, 1 + cols), 256, word_align=128)
+    _, unsat2 = gauss_blocked.rref_origin_blocked(jnp.asarray(a32), cols, 256, engine)
     assert bool(unsat2)
 
 
-def test_mxu4_panel_update_interpret():
-    """The opt-in MXU-packed engine (byte-weight matmul repack incl. the
-    int8 -128 bit-7 trick) must match the jnp formulation bit-for-bit in
-    full, trailing, const-only, and w0-inside-tile-0 modes."""
-    from gf2bv_tpu.ops.pallas_update import panel_update_mxu4
-
-    rng = np.random.default_rng(44)
-    rows, wp, k = 256, 384, 64
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    full = ref_update(a, sel, pf)
-
-    got = np.asarray(
-        panel_update_mxu4(
-            jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf), interpret=True
-        )
-    )
-    assert np.array_equal(got, full)
-
-    got2 = np.asarray(
-        panel_update_mxu4(
-            jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf),
-            interpret=True, w0=260,
-        )
-    )
-    assert np.array_equal(got2[:, :1], full[:, :1])  # const word updated
-    assert np.array_equal(got2[:, 1:128], a[:, 1:128])  # tile-0 rest: as-is
-    assert np.array_equal(got2[:, 128:256], a[:, 128:256])  # skipped
-    assert np.array_equal(got2[:, 256:], full[:, 256:])  # live
-
-    got3 = np.asarray(
-        panel_update_mxu4(
-            jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf),
-            interpret=True, w0=64,
-        )
-    )
-    assert np.array_equal(got3, full)
-
-
-def test_blocked_solver_with_mxu_la_interpret():
-    """Look-ahead megakernel engine (phase-2 rank-K update fused with the
-    NEXT panel's phase-1 scan in one Pallas kernel) must produce the exact
-    same RREF / pivot map / verdict as the jnp engines: same scan order,
-    same update formula, just overlapped on the VPU/MXU."""
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops import gauss_blocked
-    from gf2bv_tpu.ops.pallas_update import la_grid
-
-    rng = np.random.default_rng(61)
-    cols, rows = 200, 300  # pads to (512 rows, 256 words): grid 2x2
-    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-    coeff = rng.integers(0, 2, size=(rows, cols)).astype(np.uint8)
-    coeff[rows - 6 :] = coeff[:6]  # dependent rows
-    rhs = (coeff @ secret) % 2
-    bits = np.concatenate([rhs[:, None], coeff], axis=1)
-    eqs = packing.pack_bits(bits, 1 + cols)
-
-    a32 = gauss_blocked._pad(eqs, 128, word_align=256)
-    a_dev = jnp.asarray(a32)
-    assert la_grid(*a32.shape)[2] * 32 >= 128  # the engine must engage
-    got = gauss_blocked.rref_blocked(a_dev, cols, 128, "mxu_la_interpret")
-    want = gauss_blocked.rref_blocked(a_dev, cols, 128, "jnp", "jnp")
-    assert np.array_equal(np.asarray(got[0]), np.asarray(want[0]))  # rref
-    assert np.array_equal(np.asarray(got[1]), np.asarray(want[1]))  # pof
-    assert bool(got[2]) == bool(want[2]) == False  # noqa: E712
-
-    # fused mode-0 trailing path: round-trip origin + planted unsat verdict
-    origin32, unsat = gauss_blocked.rref_origin_blocked(
-        a_dev, cols, 128, "mxu_la_interpret"
-    )
-    assert not bool(unsat)
-    want_o, _ = gauss_blocked.rref_origin_blocked(a_dev, cols, 128, "jnp", "jnp")
-    assert np.array_equal(np.asarray(origin32), np.asarray(want_o))
-    bits2 = bits.copy()
-    bits2[-1] = bits2[0]
-    bits2[-1, 0] ^= 1
-    a32u = gauss_blocked._pad(
-        packing.pack_bits(bits2, 1 + cols), 128, word_align=256
-    )
-    _, unsat2 = gauss_blocked.rref_origin_blocked(
-        jnp.asarray(a32u), cols, 128, "mxu_la_interpret"
-    )
-    assert bool(unsat2)
-
-
-def test_mxu_la_narrow_fallback_interpret():
-    """Too few grid steps to host a full panel scan (narrow matrix): the
-    mxu_la request silently falls back to the plain MXU engine and still
-    solves correctly."""
-    import sys
-
-    sys.path.insert(0, "tests")
-    from test_solver import random_system
-
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.ops.pallas_update import la_grid
-
-    rng = np.random.default_rng(62)
-    eqs, _ = random_system(rng, 100, 80, rank_deficit=3)
-    assert la_grid(256, 128)[2] * 32 < 256  # gate must reject this shape
-    ref = solve_oracle(eqs, 80)
-    got = solve_blocked(eqs, 80, 1, phase2="mxu_la_interpret")
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert packing.rows_to_ints(basis) == packing.rows_to_ints(ref.basis)
-
-
-def test_blocked_solver_with_mxu4_interpret():
-    """Full solve through the mxu4 engine vs the oracle."""
-    from gf2bv_tpu.ops.gauss_blocked import solve_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-    from gf2bv_tpu.core import packing
-
-    rng = np.random.default_rng(45)
-    cols = 75
-    secret = rng.integers(0, 2, size=cols).astype(np.uint8)
-    coeff = rng.integers(0, 2, size=(150, cols)).astype(np.uint8)
-    rhs = (coeff @ secret) % 2
-    eqs = packing.pack_bits(
-        np.concatenate([rhs[:, None], coeff], axis=1), 1 + cols
-    )
-    got = solve_blocked(
-        eqs, cols, 1, phase1="pallas_scan_interpret", phase2="mxu4_interpret"
-    )
-    ref = solve_oracle(eqs, cols)
-    origin, basis = got
-    assert packing.words_to_int(origin) == packing.words_to_int(ref.origin)
-    assert [packing.words_to_int(b) for b in basis] == [
-        packing.words_to_int(b) for b in ref.basis
-    ]
-
-
-def test_mxu_scan_megakernel_trailing_branches_interpret():
-    """The fused look-ahead kernel's trailing branches (whole-tile skip,
-    const-only tile 0) never fire at the small shapes the solver-level
-    interpret tests reach (w0 >= 128 words needs >4096 cols) but fire on
-    every flagship solve; exercise them directly against the split update
-    and the standalone scan kernel."""
-    from gf2bv_tpu.ops.pallas_phase1 import _call_scan_kernel
-    from gf2bv_tpu.ops.pallas_update import panel_update_mxu_scan
-
-    rng = np.random.default_rng(46)
-    rows, wp, k = 256, 384, 64
-    kw = k // 32
-    cols = 32 * wp - 40  # real column budget so scan validity masks engage
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    full = ref_update(a, sel, pf)
-    used0 = np.zeros((1, rows), np.int32)
-    used0[0, rng.integers(0, rows, size=10)] = 1  # pre-used lanes respected
-
-    for w0, expect in (
-        (None, "full"),      # plain update, no trailing
-        (64, "full"),        # boundary inside tile 0: everything live
-        (260, "trail"),      # tile 0 const-only, tile 1 skipped, tile 2 live
-    ):
-        for w0n_words in (4, 260):  # next-panel slice: near and far
-            # reference scan input: the ALREADY-updated next-panel slice
-            bTn = full[:, w0n_words : w0n_words + kw].T.copy()
-            prow_ref, used_ref, cT_ref = _call_scan_kernel(
-                jnp.asarray(bTn), jnp.asarray(used0),
-                jnp.asarray([w0n_words], jnp.int32), k, cols, True
-            )
-            a_out, prow, cT, used = panel_update_mxu_scan(
-                jnp.asarray(a), jnp.asarray(sel), jnp.asarray(pf),
-                jnp.asarray(bTn), jnp.asarray(used0),
-                jnp.asarray(w0n_words, jnp.int32), cols=cols,
-                w0=None if w0 is None else jnp.asarray(w0, jnp.int32),
-                interpret=True,
-            )
-            got = np.asarray(a_out)
-            if expect == "full":
-                assert np.array_equal(got, full)
-            else:
-                assert np.array_equal(got[:, :1], full[:, :1])   # const word
-                assert np.array_equal(got[:, 1:128], a[:, 1:128])
-                assert np.array_equal(got[:, 128:256], a[:, 128:256])
-                assert np.array_equal(got[:, 256:], full[:, 256:])
-            assert np.array_equal(np.asarray(prow), np.asarray(prow_ref))
-            assert np.array_equal(np.asarray(cT), np.asarray(cT_ref))
-            assert np.array_equal(np.asarray(used), np.asarray(used_ref))
-
-
-def test_mxu_panel_update_seg_interpret():
-    """Segmented trailing kernel: dead tiles are excluded from the grid
-    (contents undefined); tile 0 gets the const-word-only path; live tiles
-    get the full rank-K body."""
-    from gf2bv_tpu.ops.pallas_update import panel_update_mxu_seg
-
-    rng = np.random.default_rng(14)
-    rows, wp, k = 256, 512, 64  # four 128-word tiles
-    a = rng.integers(0, 2**32, size=(rows, wp), dtype=np.uint32)
-    sel = rng.integers(0, 2**32, size=(rows, k // 32), dtype=np.uint32)
-    pf = rng.integers(0, 2**32, size=(k, wp), dtype=np.uint32)
-    full = ref_update(a, sel, pf)
-    for dead in (1, 2, 3):
-        got = np.asarray(
-            panel_update_mxu_seg(
-                jnp.asarray(a),
-                jnp.asarray(sel),
-                jnp.asarray(pf),
-                dead,
-                interpret=True,
-            )
-        )
-        # tile 0: const word updated, rest of the tile copied through
-        assert np.array_equal(got[:, :1], full[:, :1])
-        assert np.array_equal(got[:, 1:128], a[:, 1:128])
-        # tiles [dead, nj): full update; tiles [1, dead): UNDEFINED (skip)
-        assert np.array_equal(got[:, dead * 128 :], full[:, dead * 128 :])
-
-
-def test_blocked_mode0_segmented_trailing_vs_oracle():
-    """End-to-end fused mode-0 at a multi-tile width so the segmented
-    trailing loop engages dead_tiles >= 1 (wp = 256 words -> 2 tiles;
-    panels 17.. run with tile 1 live only + const word)."""
-    import jax
-
-    from gf2bv_tpu.core import packing
-    from gf2bv_tpu.ops.gauss_blocked import _pad, rref_origin_blocked
-    from gf2bv_tpu.ops.gauss_ref import solve_oracle
-
+@pytest.mark.parametrize("engine", ["jnp", "triton"])
+def test_blocked_mode0_two_tiles_vs_oracle(engine, triton_interpret):
+    """Fused mode-0 at 256 words (later panels skip the dead tiles between
+    tile 0 and the panel), with a planted unsat."""
     rng = np.random.default_rng(77)
     cols = 8190
     rows = 300
@@ -538,13 +262,11 @@ def test_blocked_mode0_segmented_trailing_vs_oracle():
     rhs = (coeff @ secret) % 2
     bits = np.concatenate([rhs[:, None], coeff], axis=1).astype(np.uint8)
     eqs = packing.pack_bits(bits, 1 + cols)
-    a32 = _pad(eqs, 256, word_align=128)
-    assert a32.shape[1] == 256  # two 128-word tiles
+    a32 = gauss_blocked._pad(eqs, 256, word_align=128)
+    assert a32.shape[1] == 256
 
     origin32, unsat = jax.device_get(
-        rref_origin_blocked(
-            jnp.asarray(a32), cols, 256, "mxu_interpret", "jnp"
-        )
+        gauss_blocked.rref_origin_blocked(jnp.asarray(a32), cols, 256, engine)
     )
     assert not bool(unsat)
     ref = solve_oracle(eqs, cols, mode=0)
@@ -552,14 +274,21 @@ def test_blocked_mode0_segmented_trailing_vs_oracle():
         packing.from_u32(origin32[None, :])[0]
     ) == packing.words_to_int(ref.origin)
 
-    # planted unsat: duplicated row with flipped RHS
     bits_bad = np.concatenate([bits, bits[:1]], axis=0)
     bits_bad[-1, 0] ^= 1
-    eqs_bad = packing.pack_bits(bits_bad, 1 + cols)
-    a32b = _pad(eqs_bad, 256, word_align=128)
+    a32b = gauss_blocked._pad(packing.pack_bits(bits_bad, 1 + cols), 256, word_align=128)
     _, unsat_b = jax.device_get(
-        rref_origin_blocked(
-            jnp.asarray(a32b), cols, 256, "mxu_interpret", "jnp"
-        )
+        gauss_blocked.rref_origin_blocked(jnp.asarray(a32b), cols, 256, engine)
     )
     assert bool(unsat_b)
+
+
+def test_triton_engine_full_rref_interpret(triton_interpret):
+    """Mode-1 blocked RREF through the Triton engine (no trailing skip)
+    equals the jnp engine's matrix, pivot map and verdict."""
+    eqs = _planted(61, 300, 200, 6)
+    a = jnp.asarray(gauss_blocked._pad(eqs, 128, word_align=128))
+    got = gauss_blocked.rref_blocked(a, 200, 128, "triton")
+    want = gauss_blocked.rref_blocked(a, 200, 128, "jnp")
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))

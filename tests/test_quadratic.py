@@ -210,7 +210,7 @@ def test_quadratic_solve_one_batch_uses_consistency_filter():
 def test_solve_one_batch_max_dimension_threaded():
     """A batch instance whose space has dim > 16 must (a) raise an
     instance-annotated DimensionTooLargeError at the default guard and
-    (b) solve when max_dimension is raised (VERDICT r2 item 6: the
+    (b) solve when max_dimension is raised (the
     nlfsr_ex-style guessing workload hits dim 17 the moment a guess
     under-constrains)."""
     from gf2bv_tpu import DimensionTooLargeError

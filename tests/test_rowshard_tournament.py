@@ -1,6 +1,6 @@
 """Tournament-pivoting sharded solver: the final RREF is unique, so origin
 and kernel basis must match the single-chip solver bit-for-bit on the
-8-device virtual CPU mesh (the phase-1 kernels run in interpret mode)."""
+8-device virtual CPU mesh."""
 
 import numpy as np
 import pytest
